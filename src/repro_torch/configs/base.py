@@ -1,0 +1,110 @@
+"""Architecture configuration (own copy of ``repro.configs.base``, dense
+family only).  The field values, derived properties and ``reduced()`` are
+held equal to the JAX package's by ``tests/test_torch_static.py``."""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # only "dense" is ported
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    citation: str = ""
+
+    d_head: int = 0                  # 0 -> d_model // n_heads
+    max_seq_len: int = 524_288
+    rope_theta: float = 10_000.0
+    attn_window: Optional[int] = None
+    layer_pattern: Tuple[str, ...] = ("attn",)
+    act: str = "silu"
+    norm: str = "rmsnorm"
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    logit_softcap: Optional[float] = None
+
+    # --- FedFA ---
+    n_sections: int = 4              # contiguous groups of scan repeats
+    pad_vocab: bool = True           # embedding rows padded to 128
+
+    # --- runtime policy ---
+    dtype: str = "bfloat16"
+    fsdp: bool = False
+    serve_fsdp: bool = False
+    remat: bool = True
+    grad_accum: int = 1
+    optimizer: str = "sgd"
+    momentum_dtype: str = "float32"
+    learning_rate: float = 0.01
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    schedule: str = "constant"
+    long_context_mode: str = "window"
+    prefill_chunk: Optional[int] = None
+
+    @property
+    def padded_vocab(self) -> int:
+        if not self.pad_vocab:
+            return self.vocab_size
+        return (self.vocab_size + 127) // 128 * 128
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or (self.d_model // max(self.n_heads, 1))
+
+    def stages(self) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
+        """Decompose n_layers into stages: [(pattern_unit, n_repeats)]."""
+        unit = self.layer_pattern
+        full, rem = divmod(self.n_layers, len(unit))
+        out = []
+        if full:
+            out.append((unit, full))
+        if rem:
+            out.append((unit[:rem], 1))
+        return tuple(out)
+
+    @property
+    def n_repeats(self) -> int:
+        return sum(r for _, r in self.stages())
+
+    def section_bounds(self) -> Tuple[Tuple[int, int], ...]:
+        """FedFA sections over the repeat axis of stage 0."""
+        reps = self.stages()[0][1]
+        n_sec = min(self.n_sections, reps)
+        base, extra = divmod(reps, n_sec)
+        bounds, start = [], 0
+        for s in range(n_sec):
+            size = base + (1 if s < extra else 0)
+            bounds.append((start, start + size))
+            start += size
+        return tuple(bounds)
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: <=2 layers, d_model<=256."""
+        kw = dict(
+            n_layers=min(self.n_layers, 2 * len(self.layer_pattern)),
+            d_model=min(self.d_model, 256),
+            n_heads=min(self.n_heads, 4),
+            n_kv_heads=min(self.n_kv_heads, 2),
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            d_head=64 if self.d_head else 0,
+            max_seq_len=512,
+            n_sections=2,
+            grad_accum=1,
+            fsdp=False,
+        )
+        if self.attn_window:
+            kw["attn_window"] = min(self.attn_window, 128)
+        return self.replace(**kw)

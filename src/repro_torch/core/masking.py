@@ -1,0 +1,100 @@
+"""Axis-mask trees: map FedFA width masks onto every parameter tensor.
+
+For each parameter leaf, ``AX(row_mask, col_mask, ...)`` records which
+width mask runs along each of its trailing axes (so depth-stacked leaves
+with a leading repeat axis broadcast).  One structure drives extraction
+(Alg. 3), gradient projection in local training and the per-element γ
+counts of the aggregation (Alg. 1 line 20).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.masks import WidthMasks
+from repro_torch.tree import tree_map
+
+Params = Dict[str, Any]
+
+
+class AX:
+    """Per-leaf axis masks aligned to the last len(ms) axes (a tree leaf)."""
+    __slots__ = ("ms",)
+
+    def __init__(self, *ms):
+        self.ms = ms
+
+
+def _rep(mask: Optional[torch.Tensor], k: int) -> Optional[torch.Tensor]:
+    return None if mask is None else torch.repeat_interleave(mask, k)
+
+
+def _norm_ax(cfg: ArchConfig, dm) -> Dict[str, AX]:
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r} is not yet ported")
+    return {"scale": AX(dm)}
+
+
+def _block_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, Any]:
+    hd = cfg.head_dim
+    h, kv = _rep(m.heads, hd), _rep(m.kv_heads, hd)
+    return {"ln1": _norm_ax(cfg, m.d_model),
+            "attn": {"wq": AX(m.d_model, h), "wk": AX(m.d_model, kv),
+                     "wv": AX(m.d_model, kv), "wo": AX(h, m.d_model)},
+            "ln2": _norm_ax(cfg, m.d_model),
+            "ffn": {"w_gate": AX(m.d_model, m.d_ff),
+                    "w_up": AX(m.d_model, m.d_ff),
+                    "w_down": AX(m.d_ff, m.d_model)}}
+
+
+def axis_mask_tree(cfg: ArchConfig, m: WidthMasks) -> Params:
+    """Tree matching the params structure; leaves are AX objects."""
+    if cfg.family != "dense" or any(k != "attn" for k in cfg.layer_pattern):
+        raise NotImplementedError(f"family {cfg.family!r} is not yet ported")
+    t: Params = {"embed": AX(None, m.d_model),
+                 "stages": tuple((_block_ax(cfg, m),) for _ in cfg.stages()),
+                 "final_norm": _norm_ax(cfg, m.d_model)}
+    if not cfg.tie_embeddings:
+        t["lm_head"] = AX(m.d_model, None)
+    return t
+
+
+def _apply_ax(leaf: torch.Tensor, ax: AX) -> torch.Tensor:
+    out = leaf
+    n = len(ax.ms)
+    for i, mv in enumerate(ax.ms):
+        if mv is None:
+            continue
+        shape = [1] * out.ndim
+        shape[out.ndim - n + i] = mv.shape[0]
+        out = out * mv.reshape(shape).to(out.dtype)
+    return out
+
+
+def apply_mask_tree(params: Params, axtree: Params) -> Params:
+    """Extraction / distribution (Alg. 3 width step): zero masked channels."""
+    return tree_map(_apply_ax, params, axtree)
+
+
+def mask_density(leaf_shape: Tuple[int, ...], ax: AX) -> torch.Tensor:
+    """Per-element 0/1 mask product, broadcastable to ``leaf_shape``."""
+    out = None
+    n = len(ax.ms)
+    for i, mv in enumerate(ax.ms):
+        if mv is None:
+            continue
+        shape = [1] * len(leaf_shape)
+        shape[len(leaf_shape) - n + i] = mv.shape[0]
+        out = mv.reshape(shape) if out is None else out * mv.reshape(shape)
+    return torch.ones((), dtype=torch.float32) if out is None else out
+
+
+def active_fraction(ax: AX) -> torch.Tensor:
+    """Product of per-axis active fractions (scalar)."""
+    f = torch.ones((), dtype=torch.float32)
+    for mv in ax.ms:
+        if mv is not None:
+            f = f.to(mv.device) * torch.mean(mv)
+    return f

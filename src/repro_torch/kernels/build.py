@@ -1,0 +1,123 @@
+"""Build and bind the hand-written CUDA kernels in ``repro_torch/csrc``.
+
+Each ``.cu`` source has a plain C entry point and is compiled by ``nvcc``
+into its own shared library (for ``sm_90a``), loaded with ``ctypes``.  A
+library is built at first use into ``build/kernels/`` at the repository
+root (listed in ``.gitignore``), named by a hash of its source and flags so
+an edited source is rebuilt.  ``build_all`` starts one ``nvcc`` per source
+at once.  Nothing is built or loaded when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Iterable, List, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+class CudaKernel:
+    """One kernel's shared library, its C entry point and a launch count.
+
+    ``launches`` grows by one each time ``launch`` runs the kernel and is
+    reset by whoever reads it."""
+
+    def __init__(self, source: str, symbol: str, argtypes: List):
+        self.source = CSRC / source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+
+    @property
+    def library(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes()
+                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        return BUILD_DIR / f"{self.source.stem}-{h}.so"
+
+    def start_build(self) -> Optional[subprocess.Popen]:
+        """Start nvcc for this kernel unless its library is already built."""
+        if self.library.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
+        log = open(self.library.with_suffix(".log"), "w")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(self.source)],
+                                stdout=log, stderr=subprocess.STDOUT)
+        proc.tmp, proc.log = tmp, log
+        return proc
+
+    def _load(self):
+        if self._fn is None:
+            build_all([self])
+            fn = getattr(ctypes.CDLL(str(self.library)), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Run the kernel on the current stream; raise if it did not launch."""
+        rc = self._load()(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol} failed to launch: CUDA error "
+                               f"{rc}")
+        self.launches += 1
+
+
+def build_all(kernels: Iterable[CudaKernel]) -> None:
+    """Compile every kernel not built yet, all nvcc processes at once."""
+    procs = [(k, p) for k in kernels if (p := k.start_build()) is not None]
+    failed = []
+    for k, p in procs:
+        p.wait()
+        p.log.close()
+        if p.returncode == 0:
+            os.replace(p.tmp, k.library)
+        else:
+            failed.append(f"{k.source.name}:\n"
+                          + k.library.with_suffix(".log").read_text())
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as an integer handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_input(name: str, t: torch.Tensor, dtype: torch.dtype,
+                shape: tuple, device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (the kernels take no strides).  Wrappers check on every
+    device, so the CPU path rejects what the kernel would."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} is on {device}: the kernels run on CUDA "
+                         f"and their plain versions on the CPU")

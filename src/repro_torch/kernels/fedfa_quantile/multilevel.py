@@ -1,0 +1,108 @@
+"""Multilevel (byte-histogram) trimmed quantile for rows of any length.
+
+A 256-ary count-and-partition search over the IEEE-754 bit pattern of |x|:
+level j histograms byte 3−j of the elements whose higher bytes match the
+prefix resolved so far, so four levels resolve the exact order statistics
+(bit-equal to jnp.quantile's).  Each level also accumulates per-bin Σx²;
+summed strictly below the chosen bin at inner levels and inclusively at the
+last, they give S(v) = Σ x²·[x <= v] for both bracketing statistics without
+another pass.  One CUDA kernel (``csrc/hist_level.cu``) builds a level's
+histogram planes; the level loop, cumulative sums and bin pick stay here.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import CudaKernel, check_input, stream_of
+from repro_torch.kernels.fedfa_quantile import ref
+
+_BINS = 256
+_LEVELS = 4
+# the kernel keeps 2 x S x 256 (int32 + f32) planes in one block's shared
+# memory: 4 KiB per segment of the 227 KB a block can use
+MAX_SEGMENTS = 56
+
+HIST_LEVEL = CudaKernel(
+    "hist_level.cu", "hist_level",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
+               shift: int):
+    """One level's histogram planes: x (m, C) f32, seg_id (C,) int32 (−1
+    inert), hi (m, 2, S) int32 -> counts (m, 2, S, 256) int32 and Σx²
+    (m, 2, S, 256) f32 (see ``ref.hist_level_ref``)."""
+    if x.dim() != 2 or hi.dim() != 3:
+        raise ValueError(f"hist_level takes x (m, C) and hi (m, 2, S), got "
+                         f"{tuple(x.shape)} and {tuple(hi.shape)}")
+    m, C = x.shape
+    S = hi.shape[2]
+    check_input("x", x, torch.float32, (m, C), x.device)
+    check_input("seg_id", seg_id, torch.int32, (C,), x.device)
+    check_input("hi", hi, torch.int32, (m, 2, S), x.device)
+    if x.device.type == "cpu":
+        return ref.hist_level_ref(x, seg_id, hi, shift)
+    if not 1 <= S <= MAX_SEGMENTS or m > 65535:
+        raise ValueError(f"hist_level takes 1..{MAX_SEGMENTS} segments and "
+                         f"at most 65535 rows, got S={S}, m={m}")
+    cnt = torch.zeros((m, 2, S, _BINS), dtype=torch.int32, device=x.device)
+    sq = torch.zeros((m, 2, S, _BINS), dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    HIST_LEVEL.launch(x.data_ptr(), seg_id.data_ptr(), hi.data_ptr(),
+                      cnt.data_ptr(), sq.data_ptr(), m, C, S, shift, sms,
+                      stream_of(x))
+    return cnt, sq
+
+
+def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
+                            seg_len: torch.Tensor, q_seg: torch.Tensor):
+    """Exact per-(row, segment) (threshold, trimmed Σw²) over flat rows.
+
+    x (m, C) f32; seg_id (C,) int32 maps each column to its segment (−1
+    marks inert columns); seg_len (S,) holds the element count of each
+    segment and q_seg (m, S) the quantile levels.  Returns (t, ss), both
+    (m, S) f32: t[c, s] = quantile(|x[c]| on segment s, q_seg[c, s]),
+    ss = Σ x²·[|x| <= t].
+    """
+    m = x.shape[0]
+    S = seg_len.shape[0]
+    r0, r1, frac = ref.interpolation_ranks(q_seg, seg_len[None, :])
+    rank = torch.stack([r0, r1], dim=1)                        # (m, 2, S)
+    lo = torch.zeros((m, 2, S), dtype=torch.int64, device=x.device)
+    sqb = torch.zeros((m, 2, S), dtype=torch.float32, device=x.device)
+    for j in range(_LEVELS):
+        shift = 24 - 8 * j
+        hi = (lo >> min(shift + 8, 31)).to(torch.int32)
+        cnt, sq = hist_level(x, seg_id, hi, shift)
+        cum = torch.cumsum(cnt, dim=-1)
+        # smallest bin whose cumulative count exceeds the rank
+        bstar = torch.sum(cum <= rank[..., None], dim=-1)
+        prev = torch.clamp(bstar - 1, min=0)[..., None]
+        below = torch.where(bstar > 0, torch.gather(cum, -1, prev)[..., 0], 0)
+        sq_cum = torch.cumsum(sq, dim=-1)
+        if j < _LEVELS - 1:     # Σx² strictly below the bracket
+            sqb = sqb + torch.where(
+                bstar > 0, torch.gather(sq_cum, -1, prev)[..., 0], 0.0)
+        else:                   # inclusive: completes S(v) = Σ x²·[x <= v]
+            sqb = sqb + torch.gather(sq_cum, -1, bstar[..., None])[..., 0]
+        rank = rank - below
+        lo = lo + (bstar << shift)
+    v = lo.to(torch.int32).view(torch.float32)
+    v0, v1 = v[:, 0], v[:, 1]
+    t = ref.interpolate(v0, v1, frac)
+    # no data value lies strictly between adjacent order statistics
+    return t, torch.where(t < v1, sqb[:, 0], sqb[:, 1])
+
+
+def row_trimmed_stats_multilevel(rows: torch.Tensor, q: torch.Tensor):
+    """``ops.row_trimmed_stats`` for long rows: each row (R, L) is one
+    single-segment client; q (R,) levels."""
+    R, L = rows.shape
+    seg_id = torch.zeros(L, dtype=torch.int32, device=rows.device)
+    seg_len = torch.full((1,), L, dtype=torch.int64, device=rows.device)
+    t, ss = segmented_trimmed_stats(rows.to(torch.float32), seg_id, seg_len,
+                                    q.reshape(R, 1))
+    return t[:, 0], ss[:, 0]

@@ -1,0 +1,201 @@
+"""The port's kernel wrappers on the CPU (their plain PyTorch versions,
+which the CUDA kernels are held against on the card) against the JAX
+package's kernels in interpret mode and their jnp references.
+
+Tolerances: thresholds t are bit-equal (both sides find exact order
+statistics and interpolate with the same f32 operations); sums of squares
+and weighted sums agree to the f32 rounding of a different summation
+order (rtol 1e-5 and 1e-6)."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.fedfa_agg import ops as jagg_ops
+from repro.kernels.fedfa_agg import ref as jagg_ref
+from repro.kernels.fedfa_quantile import multilevel as jml
+from repro.kernels.fedfa_quantile import ops as jq_ops
+from repro.kernels.fedfa_quantile import ref as jq_ref
+from repro_torch.kernels.fedfa_agg import ops as agg_ops
+from repro_torch.kernels.fedfa_quantile import multilevel, ops, ref
+
+torch.set_num_threads(2)
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("m,n", [(1, 7), (3, 1000), (5, 4096), (8, 5003)])
+def test_scaled_accum_matches_reference(m, n):
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(m, n)).astype(np.float32)
+    w = rng.uniform(0, 5, m).astype(np.float32)
+    mask = (rng.random(n) < 0.8).astype(np.float32)
+    before = agg_ops.SCALED_ACCUM.launches
+    out = agg_ops.scaled_accum(torch.from_numpy(x), torch.from_numpy(w),
+                               torch.from_numpy(mask)).numpy()
+    assert agg_ops.SCALED_ACCUM.launches == before   # CPU: the plain version
+    # f32 sums in another order: error relative to the summed magnitudes
+    tol = dict(rtol=1e-6,
+               atol=1e-6 * float((np.abs(w)[:, None] * np.abs(x)).sum(0).max()))
+    np.testing.assert_allclose(out, np.asarray(jagg_ref.scaled_accum_ref(
+        x, w, mask)), **tol)
+    np.testing.assert_allclose(out, np.asarray(jagg_ops.accumulate(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(mask), interpret=True)),
+        **tol)
+
+
+def test_interpolation_matches_jnp_quantile():
+    """t = v0·(1−frac) + v1·frac rounds as jnp.quantile compiles it (one
+    product fused into the add), bit for bit: on two-element rows
+    [v0, v1] the level q is the interpolation weight itself."""
+    rng = np.random.default_rng(0)
+    v0 = np.abs(rng.normal(size=20000)).astype(np.float32)
+    v1 = (v0 + np.abs(rng.normal(size=20000)) * 0.01).astype(np.float32)
+    frac = rng.random(20000).astype(np.float32)
+    frac[:100] = 0.0
+    want = jax.vmap(jnp.quantile)(jnp.stack([v0, v1], 1), frac)
+    got = ref.interpolate(*map(torch.from_numpy, (v0, v1, frac)))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def _rows(kind, R, L, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        return rng.normal(size=(R, L)).astype(np.float32)
+    if kind == "ties":        # few distinct magnitudes, both signs
+        return (rng.integers(-4, 5, (R, L)) * 0.25).astype(np.float32)
+    if kind == "zeros":       # all-masked rows: every magnitude is 0
+        return np.zeros((R, L), np.float32)
+    raise ValueError(kind)
+
+
+CASES = [("normal", 3, 1000, "mid"), ("normal", 4, 4093, "mid"),
+         ("ties", 3, 2048, "mid"), ("zeros", 2, 1500, "mid"),
+         ("normal", 3, 1537, "ends"), ("ties", 2, 1, "ends"),
+         ("normal", 2, 2, "ends")]
+
+
+def _levels(how, R, seed):
+    if how == "ends":
+        return np.array([0.0, 1.0, 0.5][:R] + [1.0] * max(0, R - 3),
+                        np.float32)
+    return np.random.default_rng(seed + 1).uniform(0.9, 1.0, R) \
+        .astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,R,L,how", CASES)
+def test_quantile_fused_matches_reference(kind, R, L, how):
+    rows, q = _rows(kind, R, L, L), _levels(how, R, L)
+    t, ss = ops.quantile_fused(torch.from_numpy(rows), torch.from_numpy(q))
+    jt, jss = jq_ops.row_trimmed_stats(jnp.asarray(rows), jnp.asarray(q),
+                                       interpret=True)
+    rt, _ = jq_ref.row_trimmed_stats_ref(jnp.asarray(rows), jnp.asarray(q))
+    np.testing.assert_array_equal(_bits(t), _bits(jt))
+    np.testing.assert_array_equal(_bits(t), _bits(rt))
+    np.testing.assert_allclose(ss.numpy(), np.asarray(jss), rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind,R,L,how", CASES)
+def test_multilevel_matches_reference(kind, R, L, how):
+    rows, q = _rows(kind, R, L, L + 7), _levels(how, R, L)
+    t, ss = multilevel.row_trimmed_stats_multilevel(torch.from_numpy(rows),
+                                                    torch.from_numpy(q))
+    jt, jss = jml.row_trimmed_stats_multilevel(jnp.asarray(rows),
+                                               jnp.asarray(q), interpret=True)
+    pt, pss = ref.row_trimmed_stats_ref(torch.from_numpy(rows),
+                                        torch.from_numpy(q))
+    np.testing.assert_array_equal(_bits(t), _bits(jt))
+    np.testing.assert_array_equal(_bits(t), _bits(pt))
+    np.testing.assert_allclose(ss.numpy(), np.asarray(jss), rtol=1e-5)
+    np.testing.assert_allclose(ss.numpy(), pss.numpy(), rtol=1e-5)
+
+
+def _segmented_case(seed):
+    rng = np.random.default_rng(seed)
+    m, C, S = 3, 1024, 3
+    x = rng.normal(size=(m, C)).astype(np.float32)
+    seg = np.repeat(np.arange(S, dtype=np.int32), [300, 500, 200])
+    seg = np.concatenate([seg, np.full(C - seg.size, -1, np.int32)])
+    seg_len = np.bincount(seg[seg >= 0], minlength=S).astype(np.int32)
+    q = rng.uniform(0.9, 1.0, (m, S)).astype(np.float32)
+    return x, seg, seg_len, q
+
+
+@pytest.mark.parametrize("level", [0, 2])
+def test_hist_level_planes_match_reference(level):
+    """One level's count and Σx² planes, with segments, inert columns and a
+    resolved prefix taken from the data so later levels see real brackets."""
+    x, seg, _, _ = _segmented_case(level)
+    m, S = x.shape[0], 3
+    shift = 24 - 8 * level
+    bits = np.abs(x).view(np.int32)
+    hs = min(shift + 8, 31)
+    hi = np.stack([bits[:, [0, 300, 800]] >> hs,
+                   bits[:, [1, 301, 801]] >> hs], axis=1)
+    hi = np.ascontiguousarray(hi, dtype=np.int32)
+    cnt, sq = multilevel.hist_level(torch.from_numpy(x), torch.from_numpy(seg),
+                                    torch.from_numpy(hi), shift)
+    jcnt, jsq = jml._hist_call(jnp.asarray(x), jnp.asarray(seg),
+                               jnp.ones((m, S), jnp.float32), jnp.asarray(hi),
+                               jnp.asarray(shift, jnp.int32), interpret=True)
+    assert int(cnt.sum()) > 0
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+    np.testing.assert_allclose(sq.numpy(), np.asarray(jsq), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segmented_stats_match_reference(seed):
+    x, seg, seg_len, q = _segmented_case(seed)
+    t, ss = multilevel.segmented_trimmed_stats(
+        torch.from_numpy(x), torch.from_numpy(seg),
+        torch.from_numpy(seg_len), torch.from_numpy(q))
+    # jitted, as the JAX round runs it: XLA fuses the interpolation's
+    # multiply-add only in compiled code
+    jt, jss = jax.jit(functools.partial(jml.segmented_trimmed_stats,
+                                        interpret=True))(
+        jnp.asarray(x), jnp.asarray(seg), jnp.asarray(seg_len), jnp.asarray(q))
+    np.testing.assert_array_equal(_bits(t), _bits(jt))
+    np.testing.assert_allclose(ss.numpy(), np.asarray(jss), rtol=1e-5)
+
+
+def test_long_rows_dispatch_to_multilevel(monkeypatch):
+    """The JAX dispatch rule: rows whose lane-padded length exceeds 2^18
+    take the multilevel path, shorter rows the single-pass kernel."""
+    calls = []
+    real = multilevel.row_trimmed_stats_multilevel
+    monkeypatch.setattr(ops.multilevel, "row_trimmed_stats_multilevel",
+                        lambda r, q: calls.append(r.shape) or real(r, q))
+    rng = np.random.default_rng(0)
+    short = torch.from_numpy(rng.normal(size=(2, 1 << 18)).astype(np.float32))
+    long = torch.from_numpy(
+        rng.normal(size=(2, (1 << 18) + 1)).astype(np.float32))
+    q = torch.tensor([0.95, 0.97])
+    ops.row_trimmed_stats(short, q)
+    assert calls == []
+    t, ss = ops.row_trimmed_stats(long, q)
+    assert calls == [(2, (1 << 18) + 1)]
+    pt, pss = ref.row_trimmed_stats_ref(long, q)
+    np.testing.assert_array_equal(_bits(t), _bits(pt))
+    np.testing.assert_allclose(ss.numpy(), pss.numpy(), rtol=1e-5)
+
+
+def test_wrappers_reject_other_devices():
+    """Off the CPU a wrapper launches its kernel or raises: a tensor on
+    another device type never falls back to the plain version."""
+    x = torch.empty((2, 8), device="meta")
+    with pytest.raises(ValueError):
+        agg_ops.scaled_accum(x, torch.empty(2, device="meta"),
+                             torch.empty(8, device="meta"))
+    with pytest.raises(ValueError):
+        ops.quantile_fused(x, torch.empty(2, device="meta"))
+    with pytest.raises(ValueError):
+        multilevel.hist_level(x, torch.empty(8, dtype=torch.int32,
+                                             device="meta"),
+                              torch.empty((2, 2, 1), dtype=torch.int32,
+                                          device="meta"), 24)
