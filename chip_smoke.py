@@ -9,19 +9,30 @@
 3. Checks the port on the card against the port on the CPU at the 4-layer
    test size: two resident rounds with an attacker, same seed, same
    weights (losses and the global model at rtol 1e-3 / atol 1e-4: f32
-   sums in another order, compounded by two rounds of SGD).
+   sums in another order, compounded by two rounds of SGD).  Then two
+   quantized resident rounds each for int8 and bf16, each round started
+   on the card from the CPU's global and quantized state, at the round
+   test's tolerance (losses rtol 1e-4; the global within rtol 1e-4 /
+   atol 1e-5 but at most 1e-4·N elements, each within one admission step
+   of its segment, and relative L2 within 1e-4).
 4. Drives the main path — ``launch.train.run_fl`` with the CLI defaults
    (smollm-135m at full width and depth, 16 clients at participation 0.5,
    batch 8, sequence 64, 2 local steps, fedfa, cls) — for 2 rounds, with
    every kernel's launch count set to 0 just before and read just after;
-   fails unless the losses are finite and every kernel ran.
-5. Times one resident round and its aggregation alone.
-6. Holds each kernel against its plain PyTorch version at the main path's
-   shapes (scaled_accum within 1e-5 of the summed magnitudes; thresholds
+   fails unless the losses are finite and every kernel of the path ran.
+   Then the same with ``--update-dtype int8`` and with ``bf16``, each its
+   own path with its own counts.
+5. Times one resident round and its aggregation alone, at f32 and int8.
+6. Drives ``trimmed_norm`` (the entry point of ``trimmed_sumsq``) once on
+   the full-size global, counts reset just before it.
+7. Holds each kernel against its plain PyTorch version at the main path's
+   shapes (weighted sums within 1e-5 of the summed magnitudes; thresholds
    bit-equal; trimmed sums of squares at rtol 1e-5; histogram counts
-   equal) and times the kernel, the plain version and, where one PyTorch
-   call computes the same function, that call.
-7. Prints the kernels line, then ``{"ok": true, "device": {...}}`` last.
+   equal), f32 and the quantized variants, and ``trimmed_sumsq`` also
+   against ``quantile_fused``'s Σx² at that kernel's thresholds; times the
+   kernel, the plain version and, where one PyTorch call computes the same
+   function, that call.
+8. Prints the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure exits non-zero before the last line.  Without CUDA, or without
 the repository around it, the script exits non-zero and prints no result.
@@ -107,8 +118,73 @@ def small_reference_check() -> None:
     log(f"small check: cuda losses {out['cuda'][1]} cpu {out['cpu'][1]}")
 
 
-def main_path(kernels) -> dict:
-    """The CLI defaults at full size for 2 rounds; returns the history."""
+def round_close(got, want, steps, what: str) -> None:
+    """One quantized round against another from the same state: every
+    element within rtol 1e-4 / atol 1e-5, except at most 1e-4·N elements,
+    each within one admission step; relative L2 within 1e-4."""
+    err = np.abs(got - want)
+    out = ~(err <= 1e-5 + 1e-4 * np.abs(want))
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    log(f"{what}: {int(out.sum())} of {got.size} elements past rtol 1e-4 / "
+        f"atol 1e-5, largest {float(err.max()):.3g}, relative L2 {rel:.3g}")
+    check(out.sum() <= 1e-4 * got.size and bool((err[out] <= steps[out]).all())
+          and rel <= 1e-4, f"{what} differs past the flip allowance")
+
+
+def small_quantized_check(update_dtype: str) -> None:
+    """Two quantized resident rounds at the 4-layer size on the card and on
+    the CPU, each card round started from the CPU's global and state."""
+    from repro_torch.core import flat
+    from repro_torch.core.round import ResidentDriver, default_perms
+    from repro_torch.core.server import FLConfig, make_client_specs
+    from repro_torch.data import partition, pipeline, synthetic
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+
+    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=False)
+    specs = make_client_specs(cfg, 4, archs=train.client_arch_pool(cfg, "both"),
+                              malicious_frac=0.25, seed=0)
+    parts = partition.iid_partition(4, 10, seed=0)
+    profiles = synthetic.make_class_profiles(10, cfg.vocab_size, seed=0)
+    fl = FLConfig(local_steps=2, lr=0.05, strategy="fedfa", task="cls",
+                  update_dtype=update_dtype)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    index = flat.FlatIndex(params)
+    drivers = {d: ResidentDriver(cfg, fl, index, d) for d in ("cuda", "cpu")}
+    g = {d: flat.flatten(index, params).to(d) for d in drivers}
+    perms = {d: default_perms(0) for d in drivers}
+    for r in range(2):
+        b = pipeline.round_batches_cls(
+            parts, list(range(4)), 10, cfg.vocab_size, local_steps=2,
+            batch=2, seq_len=16, profiles=profiles, seed=100 + r)
+        if r:
+            g["cuda"].copy_(g["cpu"])
+            for t, c in zip(drivers["cuda"].pool(4)[1],
+                            drivers["cpu"].pool(4)[1]):
+                t.copy_(c)
+        loss = {}
+        for d, drv in drivers.items():
+            batches = {k: torch.as_tensor(v, dtype=torch.int64, device=d)
+                       for k, v in b.items()}
+            pm = perms[d](r, 4, batches["labels"][0].numel()).to(d)
+            loss[d] = float(drv.round(g[d], specs, batches, pm))
+        np.testing.assert_allclose(loss["cuda"], loss["cpu"], rtol=1e-4)
+        want = g["cpu"].numpy()
+        row_of = torch.as_tensor(index.row_of).long()
+        if update_dtype == "int8":
+            steps = drivers["cpu"].pool(4)[1][1].amax(0)[row_of]
+        else:   # one bf16 ulp at the segment's largest magnitude
+            seg_max = torch.zeros(index.n_segments).scatter_reduce(
+                0, row_of, g["cpu"].abs(), "amax")
+            steps = (2.0 ** (torch.floor(torch.log2(seg_max)) - 7))[row_of]
+        round_close(g["cuda"].cpu().numpy(), want, steps.numpy(),
+                    f"small {update_dtype} check, round {r}")
+        log(f"small {update_dtype} check round {r}: losses {loss}")
+
+
+def main_path(kernels, update_dtype: str, path_kernels) -> dict:
+    """The CLI defaults at full size for 2 rounds at ``update_dtype``, with
+    every launch count reset just before; returns the history."""
     from repro_torch.launch import train
     for k in kernels:
         k.launches = 0
@@ -117,24 +193,59 @@ def main_path(kernels) -> dict:
     hist = train.run_fl("smollm-135m", 2, 16, strategy="fedfa", batch=8,
                         seq_len=64, participation=0.5, local_steps=2, lr=0.05,
                         task="cls", eval_every=5, driver="resident",
-                        full_size=True, device="cuda")
+                        update_dtype=update_dtype, full_size=True,
+                        device="cuda")
     torch.cuda.synchronize()
     hist["seconds"] = time.perf_counter() - t0
     hist["launches"] = {k.symbol: k.launches for k in kernels}
     hist["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     check(len(hist["round_loss"]) == 2
           and bool(np.all(np.isfinite(hist["round_loss"]))),
-          f"main path losses {hist['round_loss']}")
-    check(all(n > 0 for n in hist["launches"].values()),
-          f"a kernel of the main path never ran: {hist['launches']}")
+          f"{update_dtype} main path losses {hist['round_loss']}")
+    check(all(k.launches > 0 for k in path_kernels),
+          f"a kernel of the {update_dtype} main path never ran: "
+          f"{hist['launches']}")
     return hist
 
 
-def round_timing() -> dict:
-    """Local training and aggregation of one full-size resident round."""
+def round_timing(update_dtype: str):
+    """Local training, admission and aggregation of one full-size resident
+    round (CUDA events), and the round's peak memory."""
     from repro_torch.launch import profile
-    r = profile.full_round(8, device="cuda")
-    return {"n_params": r["index"].n, "m": 8, **profile.breakdown(r)}
+    r = profile.full_round(8, device="cuda", update_dtype=update_dtype)
+    out = {"update_dtype": update_dtype, "n_params": r["index"].n, "m": 8,
+           **profile.breakdown(r)}
+    return out, r["g_buf"]
+
+
+def trimmed_norm_path(kernels, g: torch.Tensor) -> dict:
+    """``trimmed_norm`` of a full-size global at its 0.95-quantile, counts
+    reset just before; its square is held against the multilevel Σx²."""
+    from repro_torch.kernels.fedfa_agg import ops as agg_ops
+    from repro_torch.kernels.fedfa_quantile import ops
+    t, ss = ops.row_trimmed_stats(g[None], torch.full((1,), 0.95,
+                                                      device="cuda"))
+    for k in kernels:
+        k.launches = 0
+    norm = agg_ops.trimmed_norm(g, t[0])
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in kernels}
+    check(launches["trimmed_sumsq"] == 1, f"trimmed_norm: {launches}")
+    torch.testing.assert_close(norm * norm, ss[0], rtol=1e-5, atol=0)
+    return {"norm": float(norm), "launches": launches}
+
+
+def model_index():
+    """The FlatIndex of full-size smollm-135m, from shapes alone."""
+    from repro_torch.core import flat
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import _is_shape, param_shapes
+    from repro_torch.tree import from_paths, leaves_with_path
+    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=True)
+    leaves = list(leaves_with_path(param_shapes(cfg), is_leaf=_is_shape))
+    return flat.FlatIndex(from_paths(
+        [p for p, _ in leaves],
+        [torch.empty(s, device="meta") for _, s in leaves]))
 
 
 def main_path_shapes(m: int):
@@ -157,8 +268,23 @@ def main_path_shapes(m: int):
     return n, single, multi
 
 
+def quantized_rows(dtype: str, R: int, L: int, gen):
+    """(rows, per-row scales) as the admission stores them: int8 with
+    scale max|x|/127, or bf16 with scale 1, of normal rows."""
+    x = torch.randn((R, L), generator=gen, device="cuda")
+    if dtype == "bf16":
+        return x.to(torch.bfloat16), torch.ones(R, device="cuda")
+    s = x.abs().amax(1) / 127.0
+    return torch.round(x / s[:, None]).clamp(-127, 127).to(torch.int8), s
+
+
+BYTES = {"f32": 4, "int8": 1, "bf16": 2}
+
+
 def kernel_checks(launches: dict) -> list:
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main path's shapes;
+    ``launches`` holds each path's counts, by admission dtype."""
+    from repro_torch.core import flat
     from repro_torch.kernels.fedfa_agg import ops as agg_ops
     from repro_torch.kernels.fedfa_agg import ref as agg_ref
     from repro_torch.kernels.fedfa_quantile import multilevel, ops, ref
@@ -180,75 +306,160 @@ def kernel_checks(launches: dict) -> list:
     check(bool((err <= 1e-5 * mag).all()), "scaled_accum disagrees")
     b, by = bound((m * n + m + 2 * n) * 4, 2 * m * n + n)
     out.append({
-        "name": "scaled_accum", "route": "cuda",
+        "name": "scaled_accum", "dtype": "f32", "route": "cuda",
         "source": "src/repro_torch/csrc/scaled_accum.cu",
         "replaces": "src/repro/kernels/fedfa_agg/kernel.py:71",
-        "launches": launches["scaled_accum"], "max_abs_err": float(err.max()),
+        "launches": launches["f32"]["scaled_accum"],
+        "max_abs_err": float(err.max()),
         "ms": time_ms(lambda: agg_ops.scaled_accum(x, w, mask), 10),
         "plain_ms": time_ms(lambda: agg_ref.scaled_accum_ref(x, w, mask), 5),
         "bound_ms": b, "bound_by": by,
         "library_ms": time_ms(lambda: torch.mv(x.t(), w) * mask, 5)})
     del x, got, want, mag, err
 
+    # quant_accum: the quantized (m, N) cohort with the model's segment map
+    # and an (m, S) weight table
+    index = model_index()
+    seg = flat._device_seg_id(index, "cuda")
+    wtab = torch.rand((m, index.n_segments), generator=gen,
+                      device="cuda") * 1e-3
+    for dtype in ("int8", "bf16"):
+        if dtype == "int8":
+            xq = torch.randint(-127, 128, (m, n), generator=gen,
+                               device="cuda", dtype=torch.int8)
+        else:
+            xq = randn(m, n).to(torch.bfloat16)
+        got = agg_ops.quant_accum(xq, wtab, seg, mask)
+        want = agg_ref.quant_accum_ref(xq, wtab, seg, mask)
+        mag = agg_ref.quant_accum_ref(xq.abs(), wtab, seg, mask)
+        err = (got - want).abs()
+        check(bool((err <= 1e-5 * mag).all()), f"quant_accum {dtype} "
+              f"disagrees")
+        b, by = bound(m * n * BYTES[dtype] + 12 * n + wtab.numel() * 4,
+                      2 * m * n + n)
+        out.append({
+            "name": "quant_accum", "dtype": dtype, "route": "cuda",
+            "source": "src/repro_torch/csrc/quant_accum.cu",
+            "replaces": "src/repro/kernels/fedfa_agg/kernel.py:117",
+            "launches": launches[dtype]["quant_accum"],
+            "max_abs_err": float(err.max()),
+            "ms": time_ms(lambda: agg_ops.quant_accum(xq, wtab, seg, mask),
+                          10),
+            "plain_ms": time_ms(
+                lambda: agg_ref.quant_accum_ref(xq, wtab, seg, mask), 3),
+            "bound_ms": b, "bound_by": by, "library_ms": None})
+        del xq, got, want, mag, err
+
     # quantile_fused: every single-pass row shape of the main path (the
-    # norms, wk/wv) and an odd length; timed at the largest
-    qerr = 0.0
-    for R, L in single + [(16, 4099)]:
-        rows = randn(R, L)
+    # norms, wk/wv) and an odd length, f32 and quantized; timed at the
+    # largest.  The f32 rows of the largest shape feed trimmed_sumsq below.
+    for dtype in ("f32", "int8", "bf16"):
+        qerr = 0.0
+        for R, L in single + [(16, 4099)]:
+            if dtype == "f32":
+                rows, s = randn(R, L), None
+            else:
+                rows, s = quantized_rows(dtype, R, L, gen)
+            q = 1.0 - 0.05 * torch.rand(R, generator=gen, device="cuda")
+            t, ss = ops.quantile_fused(rows, q, s)
+            pt, pss = ref.row_trimmed_stats_ref(ref.dequantize_rows(rows, s),
+                                                q)
+            check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
+                  f"quantile_fused {dtype} thresholds differ at {(R, L)}")
+            torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0)
+            qerr = max(qerr, float((ss - pss).abs().max()))
+        R, L = single[-1]
+        if dtype == "f32":
+            rows, s = randn(R, L), None
+            f32_rows = rows
+        else:
+            rows, s = quantized_rows(dtype, R, L, gen)
         q = 1.0 - 0.05 * torch.rand(R, generator=gen, device="cuda")
-        t, ss = ops.quantile_fused(rows, q)
-        pt, pss = ref.row_trimmed_stats_ref(rows, q)
-        check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
-              f"quantile_fused thresholds differ at {(R, L)}")
-        torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0)
-        qerr = max(qerr, float((ss - pss).abs().max()))
-    R, L = single[-1]
-    rows = randn(R, L)
-    q = 1.0 - 0.05 * torch.rand(R, generator=gen, device="cuda")
-    b, by = bound((R * L + 3 * R) * 4, R * L)
-    out.append({
-        "name": "quantile_fused", "route": "cuda",
-        "source": "src/repro_torch/csrc/quantile_fused.cu",
-        "replaces": "src/repro/kernels/fedfa_quantile/kernel.py:85",
-        "launches": launches["quantile_fused"], "max_abs_err": qerr,
-        "ms": time_ms(lambda: ops.quantile_fused(rows, q), 10),
-        "plain_ms": time_ms(lambda: ref.row_trimmed_stats_ref(rows, q), 5),
-        "bound_ms": b, "bound_by": by, "library_ms": None})
-    del rows
+        b, by = bound(R * L * BYTES[dtype] + (3 + (s is not None)) * R * 4,
+                      R * L)
+        out.append({
+            "name": "quantile_fused", "dtype": dtype, "route": "cuda",
+            "source": "src/repro_torch/csrc/quantile_fused.cu",
+            "replaces": "src/repro/kernels/fedfa_quantile/kernel.py:85",
+            "launches": launches[dtype]["quantile_fused"], "max_abs_err": qerr,
+            "ms": time_ms(lambda: ops.quantile_fused(rows, q, s), 10),
+            "plain_ms": time_ms(lambda: ref.row_trimmed_stats_ref(
+                ref.dequantize_rows(rows, s), q), 5),
+            "bound_ms": b, "bound_by": by, "library_ms": None})
+        del rows
 
     # hist_level: every multilevel row shape of the main path (wq/wo, the
     # FFN, the embedding), S = 1, at the top level; and the whole multilevel
-    # quantile on the kernel against the sorting plain version.  Timed at
-    # the largest shape.
-    herr = 0.0
-    for R, L in multi:
-        x = randn(R, L)
-        seg = torch.zeros(L, dtype=torch.int32, device="cuda")
+    # quantile on the kernel against the sorting plain version.  f32 and
+    # quantized; timed at the largest shape.
+    for dtype in ("f32", "int8", "bf16"):
+        herr = 0.0
+        for R, L in multi:
+            if dtype == "f32":
+                x, s = randn(R, L), None
+            else:
+                x, s = quantized_rows(dtype, R, L, gen)
+            sc = None if s is None else s[:, None].contiguous()
+            seg1 = torch.zeros(L, dtype=torch.int32, device="cuda")
+            hi = torch.zeros((R, 2, 1), dtype=torch.int32, device="cuda")
+            cnt, sq = multilevel.hist_level(x, seg1, hi, 24, sc)
+            pcnt, psq = ref.hist_level_ref(x, seg1, hi, 24, sc)
+            check(torch.equal(cnt, pcnt),
+                  f"hist_level {dtype} counts differ at {(R, L)}")
+            torch.testing.assert_close(sq, psq, rtol=1e-5, atol=1e-6)
+            herr = max(herr, float((sq - psq).abs().max()))
+            q = 1.0 - 0.05 * torch.rand(R, generator=gen, device="cuda")
+            t, ss = multilevel.row_trimmed_stats_multilevel(x, q, s)
+            pt, pss = ref.row_trimmed_stats_ref(ref.dequantize_rows(x, s), q)
+            check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
+                  f"multilevel {dtype} thresholds differ at {(R, L)}")
+            torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0)
+            del x, pcnt, psq, pt, pss
+        R, L = multi[-1]
+        if dtype == "f32":
+            x, s = randn(R, L), None
+        else:
+            x, s = quantized_rows(dtype, R, L, gen)
+        sc = None if s is None else s[:, None].contiguous()
+        seg1 = torch.zeros(L, dtype=torch.int32, device="cuda")
         hi = torch.zeros((R, 2, 1), dtype=torch.int32, device="cuda")
-        cnt, sq = multilevel.hist_level(x, seg, hi, 24)
-        pcnt, psq = ref.hist_level_ref(x, seg, hi, 24)
-        check(torch.equal(cnt, pcnt), f"hist_level counts differ at {(R, L)}")
-        torch.testing.assert_close(sq, psq, rtol=1e-5, atol=1e-6)
-        herr = max(herr, float((sq - psq).abs().max()))
-        q = 1.0 - 0.05 * torch.rand(R, generator=gen, device="cuda")
-        t, ss = multilevel.row_trimmed_stats_multilevel(x, q)
-        pt, pss = ref.row_trimmed_stats_ref(x, q)
-        check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
-              f"multilevel thresholds differ at {(R, L)}")
-        torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0)
-        del x, pcnt, psq, pt, pss
-    R, L = multi[-1]
-    x = randn(R, L)
-    seg = torch.zeros(L, dtype=torch.int32, device="cuda")
-    hi = torch.zeros((R, 2, 1), dtype=torch.int32, device="cuda")
-    b, by = bound((R * L + L + R * 2) * 4 + R * 2 * 256 * 8, R * L)
+        b, by = bound(R * L * BYTES[dtype] + (L + R * 2) * 4
+                      + (0 if sc is None else R * 4) + R * 2 * 256 * 8, R * L)
+        out.append({
+            "name": "hist_level", "dtype": dtype, "route": "cuda",
+            "source": "src/repro_torch/csrc/hist_level.cu",
+            "replaces": "src/repro/kernels/fedfa_quantile/multilevel.py:107",
+            "launches": launches[dtype]["hist_level"], "max_abs_err": herr,
+            "ms": time_ms(lambda: multilevel.hist_level(x, seg1, hi, 24, sc),
+                          10),
+            "plain_ms": time_ms(
+                lambda: ref.hist_level_ref(x, seg1, hi, 24, sc), 3),
+            "bound_ms": b, "bound_by": by, "library_ms": None})
+        del x
+
+    # trimmed_sumsq: the (N,) f32 vector against its plain version, and
+    # each row of the largest single-pass shape at the threshold
+    # quantile_fused returned for it against that kernel's Σx²
+    R, L = single[-1]
+    q = 1.0 - 0.05 * torch.rand(R, generator=gen, device="cuda")
+    t, ss = ops.quantile_fused(f32_rows, q)
+    for r in range(R):
+        torch.testing.assert_close(agg_ops.trimmed_sumsq(f32_rows[r], t[r]),
+                                   ss[r], rtol=1e-5, atol=0)
+    wv = randn(n)
+    tv = torch.tensor(2.0, device="cuda")
+    got = agg_ops.trimmed_sumsq(wv, tv)
+    want = agg_ref.trimmed_sumsq_ref(wv, tv)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    b, by = bound(4 * n + 8, 3 * n)
     out.append({
-        "name": "hist_level", "route": "cuda",
-        "source": "src/repro_torch/csrc/hist_level.cu",
-        "replaces": "src/repro/kernels/fedfa_quantile/multilevel.py:107",
-        "launches": launches["hist_level"], "max_abs_err": herr,
-        "ms": time_ms(lambda: multilevel.hist_level(x, seg, hi, 24), 10),
-        "plain_ms": time_ms(lambda: ref.hist_level_ref(x, seg, hi, 24), 3),
+        "name": "trimmed_sumsq", "dtype": "f32", "route": "cuda",
+        "source": "src/repro_torch/csrc/trimmed_sumsq.cu",
+        "replaces": "src/repro/kernels/fedfa_agg/kernel.py:42",
+        "launches": launches["trimmed_norm"]["trimmed_sumsq"],
+        "max_abs_err": float((got - want).abs()),
+        "ms": time_ms(lambda: agg_ops.trimmed_sumsq(wv, tv), 10),
+        "plain_ms": time_ms(lambda: agg_ref.trimmed_sumsq_ref(wv, tv), 5),
         "bound_ms": b, "bound_by": by, "library_ms": None})
     return out
 
@@ -262,7 +473,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
-    from repro_torch.kernels.fedfa_agg.ops import SCALED_ACCUM
+    from repro_torch.kernels.fedfa_agg.ops import (QUANT_ACCUM, SCALED_ACCUM,
+                                                   TRIMMED_SUMSQ)
     from repro_torch.kernels.fedfa_quantile.multilevel import HIST_LEVEL
     from repro_torch.kernels.fedfa_quantile.ops import QUANTILE_FUSED
 
@@ -274,7 +486,8 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    kernels = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL]
+    kernels = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL, QUANT_ACCUM,
+               TRIMMED_SUMSQ]
     t0 = time.perf_counter()
     build.build_all(kernels)
     log(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.1f} s")
@@ -283,13 +496,26 @@ def main() -> int:
             if k.library.with_suffix(".log").exists() else k.library.name)
 
     small_reference_check()
-    hist = main_path(kernels)
-    print(json.dumps({"main_path": {
-        k: hist[k] for k in ("round_loss", "global_acc", "local_acc",
-                             "launches", "seconds", "peak_gib")}}), flush=True)
-    timing = round_timing()
-    print(json.dumps({"round": timing, "card": card}), flush=True)
-    print(json.dumps({"kernels": kernel_checks(hist["launches"])}), flush=True)
+    for dtype in ("int8", "bf16"):
+        small_quantized_check(dtype)
+    f32_path = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL]
+    launches = {}
+    for dtype in ("f32", "int8", "bf16"):
+        hist = main_path(kernels, dtype, f32_path if dtype == "f32"
+                         else f32_path + [QUANT_ACCUM])
+        launches[dtype] = hist["launches"]
+        print(json.dumps({"main_path": {"update_dtype": dtype, **{
+            k: hist[k] for k in ("round_loss", "global_acc", "local_acc",
+                                 "launches", "seconds", "peak_gib")}}}),
+              flush=True)
+    for dtype in ("f32", "int8"):
+        timing, g = round_timing(dtype)
+        print(json.dumps({"round": timing, "card": card}), flush=True)
+    tn = trimmed_norm_path(kernels, g)
+    launches["trimmed_norm"] = tn["launches"]
+    print(json.dumps({"trimmed_norm_path": tn}), flush=True)
+    del g
+    print(json.dumps({"kernels": kernel_checks(launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

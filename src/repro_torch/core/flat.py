@@ -13,8 +13,13 @@ elementwise work is one pass per leaf whatever the model's depth:
   * (M', γ) accumulation    — two weighted reductions over the client axis
                               (the ``scaled_accum`` kernel).
 
-Single device, f32 admission; the mesh, padding and quantized paths of
-``repro.core.flat`` are not yet ported.
+Quantized admission (int8 with per-(client, segment) symmetric scales, or
+bf16) stores the cohort in its admission dtype; every consumer dequantizes
+as it reads (``quant_accum`` for M', the quantile kernels' scale inputs for
+the norms), so no f32 copy of the quantized rows is made.
+
+Single device; the mesh and padding paths of ``repro.core.flat`` are not
+yet ported.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.masking import active_fraction, axis_mask_tree, mask_density
+from repro_torch.core.masking import (active_fraction, axis_mask_tree,
+                                      mask_density)
 from repro_torch.kernels.fedfa_agg import ops as agg_ops
 from repro_torch.kernels.fedfa_quantile import ops as quant_ops
 from repro_torch.models.masks import WidthMasks
@@ -177,19 +183,181 @@ def _scale_segments(index: FlatIndex, x: torch.Tensor,
     return x
 
 
-def _rows_trimmed_stats(rows: torch.Tensor, q: torch.Tensor):
+# ---------------------------------------------------------------------------
+# Quantized admission: per-(client, segment) symmetric scales
+# ---------------------------------------------------------------------------
+
+UPDATE_DTYPES = ("f32", "bf16", "int8")
+
+
+def update_dtype_of(name: str) -> torch.dtype:
+    """torch dtype for an ``--update-dtype`` name (the cohort admission
+    tier)."""
+    if name not in UPDATE_DTYPES:
+        raise ValueError(f"update_dtype must be one of {UPDATE_DTYPES}, "
+                         f"got {name!r}")
+    return {"f32": torch.float32, "bf16": torch.bfloat16,
+            "int8": torch.int8}[name]
+
+
+def _quant_maps(index: FlatIndex):
+    """Column -> scale-slot map of quantized admission, memoized on the
+    index: ``col_of`` (N,) int32 sends each position to its segment's
+    scale column and inert columns to the extra slot S, whose scale is 0
+    (so they quantize and dequantize to exact zeros).  The port's one-device
+    layout has no inert columns yet; the slot is kept so that a padded
+    layout stays inert."""
+    maps = getattr(index, "_quant_maps", None)
+    if maps is None:
+        seg_id, _, _ = _segment_maps(index)
+        col_of = seg_id.astype(np.int32).copy()
+        col_of[col_of < 0] = index.n_segments
+        maps = index._quant_maps = (col_of,)
+    return maps
+
+
+def _inert_columns(index: FlatIndex, device) -> Optional[torch.Tensor]:
+    """Boolean (N,) mask of the columns in scale slot S, or None if none."""
+    (col_of,) = _quant_maps(index)
+    inert = col_of == index.n_segments
+    return torch.as_tensor(inert, device=device) if inert.any() else None
+
+
+def _quantize_rows(y: torch.Tensor, update_dtype: str):
+    """One leaf's (m, lead, rest) f32 rows in the admission dtype, with
+    (m, lead) scales: int8 takes max|y|/127 per row (scale 0 on all-zero
+    rows, which quantize to zeros); bf16 and f32 carry scale 1."""
+    ones = lambda: torch.ones(y.shape[:2], dtype=torch.float32,
+                              device=y.device)
+    if update_dtype == "f32":
+        return y, ones()
+    if update_dtype == "bf16":
+        return y.to(torch.bfloat16), ones()
+    seg_max = torch.amax(torch.abs(y), dim=2)
+    # true f32 divisions and round-half-to-even, as the reference writes
+    # them (max is exact, so a per-row amax gives the reference's scatter-max)
+    scales = seg_max / 127.0
+    safe = torch.where(seg_max > 0, scales, 1.0)
+    q = torch.clamp(torch.round(y / safe[..., None]), -127.0, 127.0)
+    return q.to(torch.int8), scales
+
+
+def _dequantize_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """f32 (m, lead, rest) of one leaf's quantized rows and (m, lead)
+    scales."""
+    return q.to(torch.float32) * scales[..., None]
+
+
+def _leaf_rows(buf: torch.Tensor, spec: LeafSpec) -> torch.Tensor:
+    """One leaf's block of an (m, N) buffer as an (m, lead, rest) view."""
+    return buf[:, spec.offset:spec.offset + spec.size] \
+        .view(buf.shape[0], spec.lead, spec.rest)
+
+
+def quantize_cohort(index: FlatIndex, x: torch.Tensor, update_dtype: str):
+    """Quantize a grafted, density-masked (m, N) f32 cohort to the
+    admission dtype -> (x_q, scales (m, S) f32).  int8: symmetric
+    per-(client, segment) scales, scale = max|x|/127 over the segment;
+    all-zero segments keep scale 0.  bf16: a plain downcast with all-ones
+    scales.  f32 passes through."""
+    m = x.shape[0]
+    want = update_dtype_of(update_dtype)
+    if update_dtype != "int8":
+        return x.to(want), torch.ones((m, index.n_segments),
+                                      dtype=torch.float32, device=x.device)
+    x_q = torch.empty((m, index.n), dtype=torch.int8, device=x.device)
+    scales = torch.empty((m, index.n_segments), dtype=torch.float32,
+                         device=x.device)
+    for spec in index.leaves:
+        q, s = _quantize_rows(_leaf_rows(x, spec), update_dtype)
+        _leaf_rows(x_q, spec).copy_(q)
+        scales[:, spec.seg0:spec.seg0 + spec.lead] = s
+    inert = _inert_columns(index, x.device)
+    if inert is not None:
+        x_q[:, inert] = 0
+    return x_q, scales
+
+
+def dequantize_cohort(index: FlatIndex, x_q: torch.Tensor,
+                      scales: torch.Tensor) -> torch.Tensor:
+    """f32 (m, N) of a quantized cohort: x_q · scale of its segment; inert
+    columns read the scale-0 slot.  bf16 cohorts carry all-ones scales.
+    For checks: admission and aggregation never build this (m, N)
+    product."""
+    out = torch.empty(x_q.shape, dtype=torch.float32, device=x_q.device)
+    for spec in index.leaves:
+        _leaf_rows(out, spec).copy_(_dequantize_rows(
+            _leaf_rows(x_q, spec), scales[:, spec.seg0:spec.seg0 + spec.lead]))
+    inert = _inert_columns(index, x_q.device)
+    if inert is not None:
+        out[:, inert] = 0.0
+    return out
+
+
+def admit_quantized(index: FlatIndex, cfg: ArchConfig, x: torch.Tensor,
+                    masks: WidthMasks, gmaps: torch.Tensor, graft: bool,
+                    state, update_dtype: str) -> None:
+    """Quantized admission with server-side error feedback, in the order of
+    the reference round (``repro.core.round._round_q``): graft the trained
+    f32 cohort x (m, N) if ``graft``; y = (x + dequantize(e, e_s))·dens;
+    (x_q, scales) = quantize(y); e' = y − dequantize(x_q, scales);
+    (e, e_s) = quantize(e').  ``state`` = (x_q, scales, e, e_s) is updated
+    in place.  Each leaf is done whole before the next, so no (m, N) f32
+    transient exists: the per-element arithmetic, and so every bit, is
+    that of the whole-buffer reference."""
+    x_q, scales, e_q, e_s = state
+    m = x.shape[0]
+    axs = [dict(leaves_with_path(axis_mask_tree(cfg, masks.client(c))))
+           for c in range(m)]
+    rows = torch.arange(m, device=x.device)[:, None]
+    for spec in index.leaves:
+        segs = slice(spec.seg0, spec.seg0 + spec.lead)
+        xl = _leaf_rows(x, spec)
+        if graft and spec.stacked and spec.stage == 0:
+            xl = xl[rows, gmaps]
+        dens = torch.stack([mask_density(spec.shape, axs[c][spec.path])
+                            for c in range(m)]).to(x.device)
+        y = ((xl + _dequantize_rows(_leaf_rows(e_q, spec), e_s[:, segs]))
+             .view(m, *spec.shape) * dens).view(m, spec.lead, spec.rest)
+        q, s = _quantize_rows(y, update_dtype)
+        e = y - _dequantize_rows(q, s)
+        eq, es = _quantize_rows(e, update_dtype)
+        _leaf_rows(x_q, spec).copy_(q)
+        scales[:, segs] = s
+        _leaf_rows(e_q, spec).copy_(eq)
+        e_s[:, segs] = es
+
+
+def _device_seg_id(index: FlatIndex, device) -> torch.Tensor:
+    """The (N,) int32 segment id of every column on ``device`` (−1 on
+    inert columns), memoized on the index."""
+    cache = getattr(index, "_seg_ids", None)
+    if cache is None:
+        cache = index._seg_ids = {}
+    key = torch.device(device)
+    if key not in cache:
+        cache[key] = torch.as_tensor(_segment_maps(index)[0], device=key)
+    return cache[key]
+
+
+def _rows_trimmed_stats(rows: torch.Tensor, q: torch.Tensor,
+                        scale: Optional[torch.Tensor] = None):
     """Per-row (quantile threshold, trimmed Σw²) of signed rows (m, R, L)
-    with per-client levels q (m,) -> ((m, R), (m, R))."""
+    with per-client levels q (m,) -> ((m, R), (m, R)).  ``scale`` (m, R)
+    dequantizes quantized rows inside the kernels."""
     m, R, L = rows.shape
-    t, sq = quant_ops.row_trimmed_stats(rows.reshape(m * R, L).contiguous(),
-                                        torch.repeat_interleave(q, R))
+    t, sq = quant_ops.row_trimmed_stats(
+        rows.reshape(m * R, L).contiguous(), torch.repeat_interleave(q, R),
+        None if scale is None else scale.reshape(m * R).contiguous())
     return t.reshape(m, R), sq.reshape(m, R)
 
 
 def _cohort_norms(index: FlatIndex, xm: torch.Tensor, fracs: torch.Tensor,
-                  trim: float) -> torch.Tensor:
+                  trim: float, scales: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Per-(client, segment) trimmed norms of the masked (m, N) updates with
-    (m, n_leaves) active fractions -> (m, S)."""
+    (m, n_leaves) active fractions -> (m, S).  ``scales`` (m, S) declares
+    ``xm`` quantized: each leaf's rows carry their segments' scales."""
     m = xm.shape[0]
     cols = []
     for li, spec in enumerate(index.leaves):
@@ -198,7 +366,9 @@ def _cohort_norms(index: FlatIndex, xm: torch.Tensor, fracs: torch.Tensor,
         # the trim-quantile of the active magnitudes is the
         # 1-(1-trim)·f quantile of the zero-padded row
         q = 1.0 - (1.0 - trim) * fracs[:, li]
-        _, sq = _rows_trimmed_stats(rows, q)
+        sc = None if scales is None else scales[:, spec.seg0:spec.seg0
+                                                + spec.lead]
+        _, sq = _rows_trimmed_stats(rows, q, sc)
         cols.append(torch.sqrt(sq))
     return torch.cat(cols, dim=1)
 
@@ -206,18 +376,34 @@ def _cohort_norms(index: FlatIndex, xm: torch.Tensor, fracs: torch.Tensor,
 def aggregate_buffers(index: FlatIndex, g_flat: torch.Tensor, x: torch.Tensor,
                       cfg: ArchConfig, masks: WidthMasks, gates: torch.Tensor,
                       gmaps: torch.Tensor, n_data: torch.Tensor, *,
-                      graft: bool = True, scale: bool = True,
+                      graft: bool = True, pregrafted: bool = False,
+                      scale: bool = True,
+                      scales: Optional[torch.Tensor] = None,
                       trim: float = 0.95, eps: float = 1e-12) -> torch.Tensor:
     """Alg. 1 in flat space: (N,) global + (m, N) cohort in, (N,) new global
     out.  ``masks``, ``gates`` (m, R), ``gmaps`` (m, R) and ``n_data`` (m,)
     are the stacked cohort runtimes.  Clients with n_data = 0 weigh nothing
-    in either sum and are left out of the α mean."""
+    in either sum and are left out of the α mean.  ``pregrafted`` declares
+    the rows grafted already (grafting weights stay in force).
+
+    ``scales`` (m, S) switches to quantized admission: x is int8 or bf16,
+    grafted and density-masked (``admit_quantized``); the norms read it
+    through per-row scales and M' through ``accumulate_quant``'s
+    per-(client, segment) table, so x is never dequantized in memory.  Γ
+    is mask data, as on the f32 path."""
+    if scales is not None and graft and not pregrafted:
+        raise ValueError("quantized cohorts must be grafted before "
+                         "quantization (pass pregrafted=True)")
     m = x.shape[0]
-    dens = torch.empty_like(x)
+    dens = torch.empty((m, index.n), dtype=torch.float32, device=x.device)
     fracs = torch.stack([_density_and_fraction(cfg, index, masks.client(c),
                                                out=dens[c])[1]
                          for c in range(m)])
-    x_g = _graft_flat(index, x, gmaps) if graft else x.clone()
+    if scales is None:
+        x_g = _graft_flat(index, x, gmaps) if graft and not pregrafted \
+            else x.clone()
+    else:   # quantized rows arrive grafted and density-masked
+        x_g = x
 
     dwrow = None   # grafting weights every depth slot equally
     if not graft:  # depth gates weight stage-0 rows; everything else 1
@@ -226,19 +412,26 @@ def aggregate_buffers(index: FlatIndex, g_flat: torch.Tensor, x: torch.Tensor,
                                   device=x.device).clamp(max=gates.shape[1] - 1)
         dwrow = torch.where(stage0[None, :], gates[:, seg_row], 1.0)
 
-    x_g.mul_(dens)                                   # x_g is now x_g·dens
+    if scales is None:
+        x_g.mul_(dens)                               # x_g is now x_g·dens
     warow = dwrow
     if scale:
-        norms = _cohort_norms(index, x_g, fracs, trim)             # (m, S)
+        norms = _cohort_norms(index, x_g, fracs, trim, scales)     # (m, S)
         valid = (n_data > 0).to(torch.float32)
         mean_norms = torch.sum(valid[:, None] * norms, dim=0, keepdim=True) \
             / torch.clamp_min(torch.sum(valid), 1.0)
         alpha = mean_norms / torch.clamp_min(norms, eps)
         warow = alpha if dwrow is None else dwrow * alpha
     ones_n = torch.ones(index.n, dtype=torch.float32, device=x.device)
-    contrib = x_g if warow is None else _scale_segments(index, x_g, warow)
-    Mp = agg_ops.scaled_accum(contrib, n_data, ones_n)
-    del contrib, x_g
+    if scales is None:
+        contrib = x_g if warow is None else _scale_segments(index, x_g, warow)
+        Mp = agg_ops.scaled_accum(contrib, n_data, ones_n)
+        del contrib
+    else:   # scale·α·gate fold into one (m, S) table read inside the kernel
+        coeff = scales if warow is None else warow * scales
+        Mp = agg_ops.accumulate_quant(x_g, n_data, coeff,
+                                      _device_seg_id(index, x.device), ones_n)
+    del x_g
     counts = dens if dwrow is None else _scale_segments(index, dens, dwrow)
     Gm = agg_ops.scaled_accum(counts, n_data, ones_n)
     upd = Mp / torch.clamp_min(Gm, eps)

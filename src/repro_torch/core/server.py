@@ -41,6 +41,7 @@ class FLConfig:
     strategy: str = "fedfa"
     task: str = "lm"
     trim: float = 0.95
+    update_dtype: str = "f32"           # cohort admission dtype: f32|bf16|int8
     seed: int = 0
 
 

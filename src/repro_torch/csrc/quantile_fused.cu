@@ -20,8 +20,16 @@
 // contracted), and t = v0 * (1 - frac) + v1 * frac is the fused
 // fma(v1, frac, v0 * (1 - frac)) that XLA compiles jnp.quantile's
 // interpolation to on the CPU, so t matches the reference bit for bit.
+//
+// Quantized rows (int8 or bf16, with a per-row dequant scale s) are read in
+// their own type and dequantized in registers as |(float)x * s| with
+// __fmul_rn, which nvcc may not contract into a neighbouring add: the bits
+// of that one rounded product are what the radix select walks, and they
+// equal the JAX kernel's abs(x.astype(f32) * s).  Without a scale the rows
+// are f32 and the kernel is the f32 one, unchanged.
 #include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,6 +37,19 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBins = 256;  // one byte per pass; the scan gives thread b bin b
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// |x[i]|, dequantized by s when the rows carry a scale
+template <typename T, bool kScaled>
+__device__ __forceinline__ float magnitude(const T* x, int64_t i, float s) {
+  if constexpr (kScaled) return fabsf(__fmul_rn(to_f32(x[i]), s));
+  else return fabsf(to_f32(x[i]));
+}
 
 __device__ __forceinline__ void count_run(int* hist, int& cur, int& n, int b) {
   if (b != cur) {
@@ -39,10 +60,12 @@ __device__ __forceinline__ void count_run(int* hist, int& cur, int& n, int b) {
   ++n;
 }
 
+template <typename T, bool kScaled>
 __global__ void __launch_bounds__(kThreads)
-quantile_fused_kernel(const float* __restrict__ rows,
-                      const float* __restrict__ q, float* __restrict__ t_out,
-                      float* __restrict__ ss_out, int64_t L) {
+quantile_fused_kernel(const T* __restrict__ rows, const float* __restrict__ q,
+                      const float* __restrict__ scale,
+                      float* __restrict__ t_out, float* __restrict__ ss_out,
+                      int64_t L) {
   using Scan = cub::BlockScan<int, kThreads>;
   using Reduce = cub::BlockReduce<float, kThreads>;
   __shared__ union {
@@ -54,7 +77,8 @@ quantile_fused_kernel(const float* __restrict__ rows,
   __shared__ long long rank[2];   // rank left inside the resolved bracket
 
   const int64_t r = blockIdx.x;
-  const float* x = rows + r * L;
+  const T* x = rows + r * L;
+  const float sc = kScaled ? scale[r] : 1.f;
   const int tid = threadIdx.x;
 
   const float p = __fmul_rn(q[r], (float)(L - 1));
@@ -77,7 +101,7 @@ quantile_fused_kernel(const float* __restrict__ rows,
     // run-length counts in registers: a thread's elements often share a bin
     int cur0 = 0, n0 = 0, cur1 = 0, n1 = 0;
     for (int64_t i = tid; i < L; i += kThreads) {
-      const unsigned bits = __float_as_uint(fabsf(x[i]));
+      const unsigned bits = __float_as_uint(magnitude<T, kScaled>(x, i, sc));
       const int b = (bits >> shift) & 0xFF;
       const unsigned hb = bits >> hs;
       if (hb == pre0) count_run(hist[0], cur0, n0, b);
@@ -106,7 +130,7 @@ quantile_fused_kernel(const float* __restrict__ rows,
   const float t = __fmaf_rn(v1, frac, __fmul_rn(v0, __fsub_rn(1.f, frac)));
   float acc = 0.f;
   for (int64_t i = tid; i < L; i += kThreads) {
-    const float a = fabsf(x[i]);
+    const float a = magnitude<T, kScaled>(x, i, sc);
     if (a <= t) acc += a * a;
   }
   const float total = Reduce(tmp.reduce).Sum(acc);
@@ -116,12 +140,31 @@ quantile_fused_kernel(const float* __restrict__ rows,
   }
 }
 
+template <typename T, bool kScaled>
+void launch(const void* rows, const float* q, const float* scale, float* t,
+            float* ss, int64_t R, int64_t L, cudaStream_t s) {
+  quantile_fused_kernel<T, kScaled><<<(unsigned)R, kThreads, 0, s>>>(
+      (const T*)rows, q, scale, t, ss, L);
+}
+
 }  // namespace
 
-extern "C" int quantile_fused(const float* rows, const float* q, float* t,
-                              float* ss, int64_t R, int64_t L, void* stream) {
-  if (R > 0)
-    quantile_fused_kernel<<<(unsigned)R, kThreads, 0, (cudaStream_t)stream>>>(
-        rows, q, t, ss, L);
+// dtype: 0 = f32 rows, 1 = int8, 2 = bf16.  scale (R,) dequantizes the rows;
+// it may be null only for f32 rows.
+extern "C" int quantile_fused(const void* rows, int dtype, const float* q,
+                              const float* scale, float* t, float* ss,
+                              int64_t R, int64_t L, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (R == 0) return (int)cudaGetLastError();
+  if (dtype == 0 && scale == nullptr)
+    launch<float, false>(rows, q, scale, t, ss, R, L, s);
+  else if (dtype == 0)
+    launch<float, true>(rows, q, scale, t, ss, R, L, s);
+  else if (dtype == 1 && scale != nullptr)
+    launch<int8_t, true>(rows, q, scale, t, ss, R, L, s);
+  else if (dtype == 2 && scale != nullptr)
+    launch<__nv_bfloat16, true>(rows, q, scale, t, ss, R, L, s);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -99,6 +99,10 @@ def build_all(kernels: Iterable[CudaKernel]) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
+# element-type codes of the kernels' C entry points
+DTYPE_CODES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as an integer handle."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -12,60 +12,82 @@ histogram planes; the level loop, cumulative sums and bin pick stay here.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, check_input, stream_of
+from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel, check_input,
+                                       stream_of)
 from repro_torch.kernels.fedfa_quantile import ref
 
 _BINS = 256
 _LEVELS = 4
-# the kernel keeps 2 x S x 256 (int32 + f32) planes in one block's shared
-# memory: 4 KiB per segment of the 227 KB a block can use
-MAX_SEGMENTS = 56
+# the kernel keeps 2 x S x 256 (int32 count + f64 sum) planes in one
+# block's shared memory: 6 KiB per segment of the 227 KB a block can use
+MAX_SEGMENTS = 37
 
 HIST_LEVEL = CudaKernel(
     "hist_level.cu", "hist_level",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+    + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+       ctypes.c_int, ctypes.c_void_p])
+
+def row_dtype_code(x: torch.Tensor, scale: Optional[torch.Tensor]) -> int:
+    """The kernels' code for the element type of ``x``; raises on a type
+    they do not take, and on quantized rows without scales."""
+    code = DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise TypeError(f"rows of dtype {x.dtype}: the quantile kernels take "
+                        f"f32, or int8 / bf16 with scales")
+    if code and scale is None:
+        raise TypeError(f"{x.dtype} rows need their dequant scales")
+    return code
 
 
 def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
-               shift: int):
+               shift: int, sc: Optional[torch.Tensor] = None):
     """One level's histogram planes: x (m, C) f32, seg_id (C,) int32 (−1
     inert), hi (m, 2, S) int32 -> counts (m, 2, S, 256) int32 and Σx²
-    (m, 2, S, 256) f32 (see ``ref.hist_level_ref``)."""
+    (m, 2, S, 256) f32 (see ``ref.hist_level_ref``).  With ``sc`` (m, S)
+    f32 the rows may be int8 or bf16, binned as |x·sc[row, seg]|."""
     if x.dim() != 2 or hi.dim() != 3:
         raise ValueError(f"hist_level takes x (m, C) and hi (m, 2, S), got "
                          f"{tuple(x.shape)} and {tuple(hi.shape)}")
     m, C = x.shape
     S = hi.shape[2]
-    check_input("x", x, torch.float32, (m, C), x.device)
+    code = row_dtype_code(x, sc)
+    check_input("x", x, x.dtype, (m, C), x.device)
     check_input("seg_id", seg_id, torch.int32, (C,), x.device)
     check_input("hi", hi, torch.int32, (m, 2, S), x.device)
+    if sc is not None:
+        check_input("sc", sc, torch.float32, (m, S), x.device)
     if x.device.type == "cpu":
-        return ref.hist_level_ref(x, seg_id, hi, shift)
+        return ref.hist_level_ref(x, seg_id, hi, shift, sc)
     if not 1 <= S <= MAX_SEGMENTS or m > 65535:
         raise ValueError(f"hist_level takes 1..{MAX_SEGMENTS} segments and "
                          f"at most 65535 rows, got S={S}, m={m}")
     cnt = torch.zeros((m, 2, S, _BINS), dtype=torch.int32, device=x.device)
     sq = torch.zeros((m, 2, S, _BINS), dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    HIST_LEVEL.launch(x.data_ptr(), seg_id.data_ptr(), hi.data_ptr(),
+    HIST_LEVEL.launch(x.data_ptr(), code, seg_id.data_ptr(),
+                      None if sc is None else sc.data_ptr(), hi.data_ptr(),
                       cnt.data_ptr(), sq.data_ptr(), m, C, S, shift, sms,
                       stream_of(x))
     return cnt, sq
 
 
 def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
-                            seg_len: torch.Tensor, q_seg: torch.Tensor):
+                            seg_len: torch.Tensor, q_seg: torch.Tensor,
+                            scales: Optional[torch.Tensor] = None):
     """Exact per-(row, segment) (threshold, trimmed Σw²) over flat rows.
 
     x (m, C) f32; seg_id (C,) int32 maps each column to its segment (−1
     marks inert columns); seg_len (S,) holds the element count of each
     segment and q_seg (m, S) the quantile levels.  Returns (t, ss), both
     (m, S) f32: t[c, s] = quantile(|x[c]| on segment s, q_seg[c, s]),
-    ss = Σ x²·[|x| <= t].
+    ss = Σ x²·[|x| <= t].  ``scales`` (m, S) declares x quantized (int8 or
+    bf16): the rows stay in their dtype and every level dequantizes them
+    per segment, so t and ss are in dequantized units.
     """
     m = x.shape[0]
     S = seg_len.shape[0]
@@ -76,7 +98,7 @@ def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
     for j in range(_LEVELS):
         shift = 24 - 8 * j
         hi = (lo >> min(shift + 8, 31)).to(torch.int32)
-        cnt, sq = hist_level(x, seg_id, hi, shift)
+        cnt, sq = hist_level(x, seg_id, hi, shift, scales)
         cum = torch.cumsum(cnt, dim=-1)
         # smallest bin whose cumulative count exceeds the rank
         bstar = torch.sum(cum <= rank[..., None], dim=-1)
@@ -97,12 +119,15 @@ def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
     return t, torch.where(t < v1, sqb[:, 0], sqb[:, 1])
 
 
-def row_trimmed_stats_multilevel(rows: torch.Tensor, q: torch.Tensor):
+def row_trimmed_stats_multilevel(rows: torch.Tensor, q: torch.Tensor,
+                                 scale: Optional[torch.Tensor] = None):
     """``ops.row_trimmed_stats`` for long rows: each row (R, L) is one
-    single-segment client; q (R,) levels."""
+    single-segment client; q (R,) levels.  With ``scale`` (R,) the rows
+    may be int8 or bf16 and keep that dtype end to end."""
     R, L = rows.shape
     seg_id = torch.zeros(L, dtype=torch.int32, device=rows.device)
     seg_len = torch.full((1,), L, dtype=torch.int64, device=rows.device)
-    t, ss = segmented_trimmed_stats(rows.to(torch.float32), seg_id, seg_len,
-                                    q.reshape(R, 1))
+    t, ss = segmented_trimmed_stats(
+        rows, seg_id, seg_len, q.reshape(R, 1),
+        None if scale is None else scale.reshape(R, 1))
     return t[:, 0], ss[:, 0]

@@ -7,6 +7,8 @@ a sort and the interpolation repeats the kernels' f32 arithmetic.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -37,6 +39,14 @@ def interpolate(v0: torch.Tensor, v1: torch.Tensor,
     return s.to(torch.float32)
 
 
+def dequantize_rows(rows: torch.Tensor,
+                    scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """rows (R, L) as f32, times the per-row dequant scale (R,) if given:
+    the kernels' |x·s| is the |.| of this product, rounded once."""
+    rows = rows.to(torch.float32)
+    return rows if scale is None else rows * scale.to(torch.float32)[:, None]
+
+
 def row_trimmed_stats_ref(rows: torch.Tensor, q: torch.Tensor):
     """(t, ss) per row: t[r] = quantile(|rows[r]|, q[r]) and
     ss[r] = Σ rows[r]²·[|rows[r]| <= t[r]].  rows (R, L), q (R,)."""
@@ -52,19 +62,23 @@ def row_trimmed_stats_ref(rows: torch.Tensor, q: torch.Tensor):
 
 
 def hist_level_ref(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
-                   shift: int):
+                   shift: int, sc: Optional[torch.Tensor] = None):
     """One multilevel refinement level.  x (m, C), seg_id (C,) int32 with −1
     inert, hi (m, 2, S) int32 resolved prefixes -> counts (m, 2, S, 256)
     int32 and Σx² (m, 2, S, 256) f32 of byte (bits(|x|) >> shift) & 0xFF
-    over in-bracket elements.  The sums accumulate in f64."""
+    over in-bracket elements.  ``sc`` (m, S) dequantizes quantized rows
+    per segment first.  The sums accumulate in f64."""
     m, C = x.shape
     S = hi.shape[2]
-    a = torch.abs(x.to(torch.float32))
+    valid = seg_id >= 0
+    seg = seg_id.clamp(min=0).to(torch.int64)
+    a = x.to(torch.float32)
+    if sc is not None:
+        a = a * sc.to(torch.float32)[:, seg]
+    a = torch.abs(a)
     bits = a.view(torch.int32)
     binv = ((bits >> shift) & 0xFF).to(torch.int64)
     hb = bits >> min(shift + 8, 31)
-    valid = seg_id >= 0
-    seg = seg_id.clamp(min=0).to(torch.int64)
     a2 = (a * a).to(torch.float64)
     rows = torch.arange(m, device=x.device)[:, None]
     n = m * 2 * S * 256

@@ -3,6 +3,7 @@ heterogeneous client architectures, FedFA (or baseline) aggregation and
 optional backdoor attackers, with the resident or the per-round driver.
 
     python -m repro_torch.launch.train --mode fl [--full-size] [--device cpu]
+        [--update-dtype f32|bf16|int8]
 
 Runs on ``cuda`` unless ``--device`` says otherwise.  By default the model
 is cut to the JAX CLI's size (4 layers, 2 sections, a 64-entry untied
@@ -12,6 +13,7 @@ configuration.  Flags of the JAX CLI that are not yet ported raise.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from typing import Optional
 
@@ -57,7 +59,8 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
            participation: float = 0.5, seed: int = 0, eval_every: int = 5,
            task: str = "cls", width_mults=(0.25, 0.5, 0.75, 1.0),
            arch_mode: str = "width", driver: str = "resident",
-           full_size: bool = False, device=None, quiet: bool = False) -> dict:
+           update_dtype: str = "f32", full_size: bool = False, device=None,
+           quiet: bool = False) -> dict:
     from repro_torch.core.masking import apply_mask_tree, axis_mask_tree
     from repro_torch.core.server import (FLConfig, fl_round, make_client_specs,
                                          select_clients)
@@ -85,7 +88,15 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
     profiles = synthetic.make_class_profiles(n_classes, cfg.vocab_size, seed=seed)
     fl = FLConfig(participation=participation, local_steps=local_steps, lr=lr,
                   attack_lambda=attack_lambda, strategy=strategy, task=task,
-                  seed=seed)
+                  update_dtype=update_dtype, seed=seed)
+    if update_dtype != "f32" and driver == "per-round":
+        # as the reference CLI: quantized admission lives in the resident
+        # driver's cohort pool, which the per-round driver does not keep
+        if not quiet:
+            print(f"--update-dtype {update_dtype} needs the resident or "
+                  "async driver; running the per-round driver at f32",
+                  flush=True)
+        fl = dataclasses.replace(fl, update_dtype="f32")
     to_dev = lambda d: {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
                         for k, v in d.items()}
 
@@ -172,7 +183,7 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
 _UNPORTED = {"steps": 200, "agg_engine": "flat", "merge_k": 0,
              "staleness_max": 4, "async_deadline": float("inf"),
              "mesh": "none", "mesh_shape": None, "use_kernel": "auto",
-             "interpret": False, "update_dtype": "f32", "ckpt": None}
+             "interpret": False, "ckpt": None}
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -233,7 +244,8 @@ def main(argv: Optional[list] = None) -> dict:
                  local_steps=args.local_steps, lr=args.lr,
                  arch_mode=args.arch_mode, task=args.task,
                  eval_every=args.eval_every, driver=args.driver,
-                 full_size=args.full_size, device=args.device)
+                 update_dtype=args.update_dtype, full_size=args.full_size,
+                 device=args.device)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

@@ -170,7 +170,8 @@ def test_long_rows_dispatch_to_multilevel(monkeypatch):
     calls = []
     real = multilevel.row_trimmed_stats_multilevel
     monkeypatch.setattr(ops.multilevel, "row_trimmed_stats_multilevel",
-                        lambda r, q: calls.append(r.shape) or real(r, q))
+                        lambda r, q, *scale: calls.append(r.shape)
+                        or real(r, q, *scale))
     rng = np.random.default_rng(0)
     short = torch.from_numpy(rng.normal(size=(2, 1 << 18)).astype(np.float32))
     long = torch.from_numpy(

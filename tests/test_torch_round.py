@@ -126,7 +126,6 @@ def test_cli_runs_on_cpu(driver, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--driver", "async"], ["--mode", "dense"],
-                                  ["--update-dtype", "int8"],
                                   ["--mesh", "host"], ["--ckpt", "x"],
                                   ["--agg-engine", "tree"],
                                   ["--arch", "mamba2-130m"]])
