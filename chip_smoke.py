@@ -25,14 +25,31 @@
 5. Times one resident round and its aggregation alone, at f32 and int8.
 6. Drives ``trimmed_norm`` (the entry point of ``trimmed_sumsq``) once on
    the full-size global, counts reset just before it.
-7. Holds each kernel against its plain PyTorch version at the main path's
+7. Serving: ``launch.serve``'s Engine on the card against the same
+   Engine on the CPU at the reduced sizes (mamba2-130m ``reduced()`` and
+   the 4-layer smollm-135m), same weights, greedy, prompt 48 (an SSD chunk
+   of 32 and a ragged tail), 8 new tokens: tokens equal; with an f32 cache
+   the prefill and decode logits within rtol 1e-3 / atol 1e-4, with the
+   default bf16 cache within one bf16 step (2^-8) of the largest logit
+   (a stored value that the two devices' f32 sums put on either side of a
+   bf16 rounding boundary moves by one step).
+8. Drives the serving path at full size: ``launch.serve`` with
+   ``--arch mamba2-130m --full-size --batch 8 --prompt-len 1024
+   --max-new 32`` (counts reset just before; fails unless
+   ``ssd_intra_chunk`` ran exactly once per layer, 24 times, no other
+   kernel ran, and every token is in the vocabulary), then smollm-135m at
+   the serve defaults (batch 8, prompt 32, 32 new tokens; no kernel
+   launches); prints prefill ms, decode ms per token, tokens/s and peak
+   memory of that run and of a second, warm run of the same engine.
+9. Holds each kernel against its plain PyTorch version at the main path's
    shapes (weighted sums within 1e-5 of the summed magnitudes; thresholds
    bit-equal; trimmed sums of squares at rtol 1e-5; histogram counts
-   equal), f32 and the quantized variants, and ``trimmed_sumsq`` also
-   against ``quantile_fused``'s Σx² at that kernel's thresholds; times the
-   kernel, the plain version and, where one PyTorch call computes the same
-   function, that call.
-8. Prints the kernels line, then ``{"ok": true, "device": {...}}`` last.
+   equal; the SSD's y and state within atol 1e-4 + rtol 1e-4 and its L
+   within 1e-5), f32 and the quantized or bf16 variants, and
+   ``trimmed_sumsq`` also against ``quantile_fused``'s Σx² at that kernel's
+   thresholds; times the kernel, the plain version and, where one PyTorch
+   call computes the same function, that call.
+10. Prints the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure exits non-zero before the last line.  Without CUDA, or without
 the repository around it, the script exits non-zero and prints no result.
@@ -51,6 +68,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_STEP = 2.0 ** -8
 
 
 def log(msg: str) -> None:
@@ -464,6 +482,142 @@ def kernel_checks(launches: dict) -> list:
     return out
 
 
+def serve_card_vs_cpu() -> None:
+    """The serving Engine on the card and on the CPU at the reduced sizes,
+    same weights and prompts, greedy, with an f32 and a bf16 cache."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.launch import serve, train
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_map
+
+    cfgs = {"mamba2-130m": get_arch("mamba2-130m").reduced(),
+            "smollm-135m": train.fl_config("smollm-135m", "cls", 10,
+                                           full_size=False)}
+    for name, cfg in cfgs.items():
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        prompts = synthetic.lm_stream(cfg.vocab_size, 4, 48, seed=0)
+        for cache in (torch.float32, torch.bfloat16):
+            out = {}
+            for dev in ("cuda", "cpu"):
+                eng = serve.Engine(cfg, tree_map(lambda t: t.to(dev), params),
+                                   capacity=64, cache_dtype=cache)
+                out[dev] = eng.generate(prompts, max_new=8,
+                                        return_logits=True)
+            (tok, lg), (want_tok, want) = out["cuda"], out["cpu"]
+            check(np.array_equal(tok, want_tok),
+                  f"{name} {cache} serving: card tokens {tok.tolist()} != "
+                  f"cpu {want_tok.tolist()}")
+            tol = (dict(rtol=1e-3, atol=1e-4) if cache == torch.float32 else
+                   dict(rtol=0, atol=BF16_STEP * float(np.abs(want).max())))
+            np.testing.assert_allclose(lg, want, **tol)
+            log(f"serving card vs cpu, {name}, {cache} cache: tokens equal, "
+                f"logits max abs diff {float(np.abs(lg - want).max()):.3g}")
+
+
+def serve_path(kernels, arch: str, batch: int, prompt_len: int,
+               max_new: int, expect: dict) -> dict:
+    """``launch.serve`` at full size, every launch count reset just before;
+    fails unless the counts are ``expect`` (0 for any kernel not named) and
+    every token is in the vocabulary.  Then a second, warm generate on the
+    same engine and prompts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = serve.serve(arch, batch, prompt_len, max_new, full_size=True,
+                      device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels}
+    check(launches == {k.symbol: expect.get(k.symbol, 0) for k in kernels},
+          f"{arch} serving path launches {launches}, expected {expect}")
+    tok, vocab = out["tokens"], get_arch(arch).vocab_size
+    check(tok.shape == (batch, max_new)
+          and bool(((tok >= 0) & (tok < vocab)).all()),
+          f"{arch} serving path tokens {tok.shape} out of [0, {vocab})")
+    eng = out["engine"]
+    eng.generate(out["prompts"], max_new=max_new)
+    w = eng.timing
+    return {"arch": arch, "batch": batch, "prompt_len": prompt_len,
+            "max_new": max_new, "launches": launches, "seconds": seconds,
+            **{k: out[k] for k in ("prefill_ms", "decode_ms_per_token",
+                                   "tokens_per_s", "peak_gib")},
+            "warm": {"prefill_ms": w["prefill_s"] * 1e3,
+                     "decode_ms_per_token": w["decode_s"] * 1e3
+                     / w["decode_steps"],
+                     "tokens_per_s": batch * max_new
+                     / (w["prefill_s"] + w["decode_s"])}}
+
+
+def ssd_inputs(G, Q, nh, hp, N, dtype, gen):
+    """x, dt (post-softplus), A, B, C on the card, as the JAX package's
+    SSD sweep draws them."""
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = (randn(G, Q, nh, hp) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(randn(G, Q, nh))
+    A = -torch.exp(randn(nh) * 0.2)
+    return x, dt, A, (randn(G, Q, N) * 0.3).to(dtype), \
+        (randn(G, Q, N) * 0.3).to(dtype)
+
+
+def ssd_checks(launches: int) -> list:
+    """``ssd_intra_chunk`` against its plain version at the serving path's
+    shape (batch 8 x prompt 1024 in chunks of 128: G = 64; 24 heads of 64,
+    state 128), f32 and bf16 inputs; the whole chunked SSD against its
+    plain version; and the wrapper's refusal of inputs that need a
+    gradient."""
+    from repro_torch.kernels.ssd import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    G, Q, nh, hp, N = 64, 128, 24, 64, 128
+    out = []
+    for dtype, nbytes in ((torch.float32, 4), (torch.bfloat16, 2)):
+        a = ssd_inputs(G, Q, nh, hp, N, dtype, gen)
+        got, want = ops.ssd_intra_chunk(*a), ref.ssd_intra_chunk_ref(*a)
+        for what, g, w in zip(("y", "state"), got, want):
+            check(bool(((g - w).abs() <= 1e-4 + 1e-4 * w.abs()).all()),
+                  f"ssd_intra_chunk {dtype} {what} disagrees")
+        check(bool(((got[2] - want[2]).abs() <= 1e-5).all()),
+              f"ssd_intra_chunk {dtype} L disagrees")
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        # operations: C·Bᵀ once per chunk, M·x and the state per head,
+        # 2 per multiply-add, the causal products over their lower triangle
+        # (s <= t: Q(Q+1)/2 entries); bytes: each input read and output
+        # written once
+        tri = Q * (Q + 1) // 2
+        ops_n = 2 * G * (tri * N + nh * (tri * hp + Q * hp * N))
+        bytes_n = (G * Q * nh * hp * nbytes + G * Q * nh * 4 + nh * 4
+                   + 2 * G * Q * N * nbytes + G * Q * nh * hp * 4
+                   + G * nh * hp * N * 4 + G * Q * nh * 4)
+        b, by = bound(bytes_n, ops_n)
+        out.append({
+            "name": "ssd_intra_chunk",
+            "dtype": "f32" if dtype == torch.float32 else "bf16",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_intra_chunk.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:50",
+            "launches": launches, "max_abs_err": err,
+            "ms": time_ms(lambda: ops.ssd_intra_chunk(*a), 10),
+            "plain_ms": time_ms(lambda: ref.ssd_intra_chunk_ref(*a), 3),
+            "bound_ms": b, "bound_by": by, "library_ms": None})
+        del a, got, want
+    x, dt, A, B, C = ssd_inputs(8, 1024, nh, hp, N, torch.float32, gen)
+    y, h = ops.ssd(x, dt, A, B, C, Q)
+    ry, rh = ref.ssd_chunked_ref(x, dt, A, B, C, Q)
+    torch.testing.assert_close(y, ry, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, rh, rtol=1e-4, atol=1e-4)
+    try:
+        ops.ssd_intra_chunk(x[:1, :Q].contiguous().requires_grad_(True),
+                            dt[:1, :Q].contiguous(), A, B[:1, :Q].contiguous(),
+                            C[:1, :Q].contiguous())
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("ssd_intra_chunk ran on inputs that need a "
+                             "gradient")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -472,11 +626,17 @@ def main() -> int:
         log("chip_smoke: src/repro_torch not found beside the script")
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import MAMBA2_130M
     from repro_torch.kernels import build
     from repro_torch.kernels.fedfa_agg.ops import (QUANT_ACCUM, SCALED_ACCUM,
                                                    TRIMMED_SUMSQ)
     from repro_torch.kernels.fedfa_quantile.multilevel import HIST_LEVEL
     from repro_torch.kernels.fedfa_quantile.ops import QUANTILE_FUSED
+    from repro_torch.kernels.ssd.ops import SSD_INTRA_CHUNK
+
+    # full f32 products on the card, as the reference computes them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -487,7 +647,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     kernels = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL, QUANT_ACCUM,
-               TRIMMED_SUMSQ]
+               TRIMMED_SUMSQ, SSD_INTRA_CHUNK]
     t0 = time.perf_counter()
     build.build_all(kernels)
     log(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.1f} s")
@@ -515,7 +675,16 @@ def main() -> int:
     launches["trimmed_norm"] = tn["launches"]
     print(json.dumps({"trimmed_norm_path": tn}), flush=True)
     del g
-    print(json.dumps({"kernels": kernel_checks(launches)}), flush=True)
+    serve_card_vs_cpu()
+    for arch, shape, expect in (
+            ("mamba2-130m", (8, 1024, 32),     # one SSD launch per layer
+             {"ssd_intra_chunk": MAMBA2_130M.n_layers}),
+            ("smollm-135m", (8, 32, 32), {})):
+        sp = serve_path(kernels, arch, *shape, expect)
+        launches[arch] = sp["launches"]
+        print(json.dumps({"serve_path": sp, "card": card}), flush=True)
+    print(json.dumps({"kernels": kernel_checks(launches) + ssd_checks(
+        launches["mamba2-130m"]["ssd_intra_chunk"])}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

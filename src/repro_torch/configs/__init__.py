@@ -1,2 +1,3 @@
-from repro_torch.configs.base import ArchConfig
-from repro_torch.configs.registry import ARCHS, SMOLLM_135M, get_arch
+from repro_torch.configs.base import ArchConfig, SSMConfig
+from repro_torch.configs.registry import (ARCHS, MAMBA2_130M, SMOLLM_135M,
+                                          get_arch)

@@ -1,6 +1,7 @@
 """Architecture configuration (own copy of ``repro.configs.base``, dense
-family only).  The field values, derived properties and ``reduced()`` are
-held equal to the JAX package's by ``tests/test_torch_static.py``."""
+and ssm families only).  The field values, derived properties and
+``reduced()`` are held equal to the JAX package's by
+``tests/test_torch_static.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,9 +10,25 @@ from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD block configuration."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 128
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # only "dense" is ported
+    family: str                      # "dense" or "ssm" are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,6 +47,8 @@ class ArchConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     logit_softcap: Optional[float] = None
+
+    ssm: Optional[SSMConfig] = None
 
     # --- FedFA ---
     n_sections: int = 4              # contiguous groups of scan repeats
@@ -105,6 +124,9 @@ class ArchConfig:
             grad_accum=1,
             fsdp=False,
         )
+        if self.ssm:
+            kw["ssm"] = dataclasses.replace(self.ssm, d_state=32, head_dim=32,
+                                            chunk=32)
         if self.attn_window:
             kw["attn_window"] = min(self.attn_window, 128)
         return self.replace(**kw)

@@ -38,13 +38,31 @@ def make_bigram_lm(vocab: int, n_domains: int = 4, seed: int = 0):
     return trans
 
 
+class _BigramRows:
+    """The rows of one domain's ``make_bigram_lm`` matrix, each built when
+    it is asked for, with the same arithmetic, so a full-size vocabulary
+    needs no (vocab, vocab) matrix."""
+
+    def __init__(self, base: np.ndarray, nxt: np.ndarray):
+        self.base, self.nxt = base, nxt
+
+    def __getitem__(self, t: int) -> np.ndarray:
+        row = self.base * 0.3
+        for j in range(4):
+            row[self.nxt[t, j]] += 0.175
+        return row / row.sum()
+
+
 def lm_stream(vocab: int, n_seqs: int, seq_len: int, *, domain_T=None,
               n_domains: int = 4, seed: int = 0) -> np.ndarray:
     """(n_seqs, seq_len) int32 token sequences from random domains."""
     rng = np.random.default_rng(seed)
-    if domain_T is None:
-        domain_T = make_bigram_lm(vocab, n_domains, seed=seed + 7)
     base = _zipf_probs(vocab)
+    if domain_T is None:
+        # make_bigram_lm's draws, its rows built on demand
+        succ = np.random.default_rng(seed + 7)
+        domain_T = [_BigramRows(base, succ.integers(0, vocab, size=(vocab, 4)))
+                    for _ in range(n_domains)]
     out = np.empty((n_seqs, seq_len), np.int32)
     for i in range(n_seqs):
         T = domain_T[rng.integers(len(domain_T))]

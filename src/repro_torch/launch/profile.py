@@ -1,7 +1,9 @@
-"""Where a resident round's time goes on the GPU.
+"""Where a resident round's, or a serving request's, time goes on the GPU.
 
     python -m repro_torch.launch.profile [--clients 8] [--top 15]
         [--update-dtype f32|bf16|int8]
+    python -m repro_torch.launch.profile --serve mamba2-130m|smollm-135m
+        [--prompt-len 1024] [--top 15]
 
 Builds one round of the main path at full size (smollm-135m, 8 clients of
 the width pool, batch 8, sequence 64, 2 local steps, fedfa), runs one
@@ -10,7 +12,10 @@ quantized admission (``flat.admit_quantized``, int8 and bf16 only) and
 aggregation (``flat.aggregate_buffers``) with CUDA events, and traces one
 more round with ``torch.profiler``: the operators with the most device
 time, the number of device kernels, and the device's busy share of the
-traced window.  Prints one JSON object.  Needs a CUDA device.
+traced window.  With ``--serve`` it traces instead ``launch.serve``'s
+engine at full size: the prefill of 8 prompts and then 8 decode steps
+(after a warm-up request).  Prints one JSON object.  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
+
+BATCH, DECODE_STEPS = 8, 8  # a serving trace's prompts and decode steps
 
 
 def full_round(m: int = 8, seed: int = 1, device=None,
@@ -118,26 +125,69 @@ def breakdown(r: dict) -> dict:
 
 def trace(r: dict, top: int) -> dict:
     """One traced round: top operators by device time and the busy share."""
+    return _report(_trace([fn for _, fn in _phases(r)]), top)
+
+
+def _trace(fns) -> dict:
+    """Trace one call of each of ``fns``, in order: wall and device busy
+    time (ms), the device kernels, and each operator's calls and device
+    ms."""
     from torch.profiler import ProfilerActivity, profile
-    phases = _phases(r)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _, fn in phases:
+        for fn in fns:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0))
-    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
     kernels = [e for e in prof.events()
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / wall_ms, "device_kernels": len(kernels),
-            "top_ops": [{"op": e.key, "calls": e.count,
-                         "device_ms": dev_us(e) / 1e3} for e in rows[:top]]}
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": sum(e.time_range.elapsed_us()
+                                  for e in kernels) / 1e3,
+            "device_kernels": len(kernels),
+            "ops": {e.key: (e.count, dev_us(e) / 1e3)
+                    for e in prof.key_averages()}}
+
+
+def _minus(a: dict, b: dict) -> dict:
+    """What trace ``a`` holds beyond trace ``b``; operators whose calls
+    did not grow are left out."""
+    ops = {k: (c - b["ops"].get(k, (0, 0.0))[0],
+               ms - b["ops"].get(k, (0, 0.0))[1])
+           for k, (c, ms) in a["ops"].items()}
+    return {**{k: a[k] - b[k] for k in ("wall_ms", "device_busy_ms",
+                                        "device_kernels")},
+            "ops": {k: v for k, v in ops.items() if v[0] > 0}}
+
+
+def _report(t: dict, top: int) -> dict:
+    """A trace's busy share and its ``top`` operators by device time."""
+    rows = sorted(t["ops"].items(), key=lambda kv: kv[1][1], reverse=True)
+    return {"wall_ms": t["wall_ms"], "device_busy_ms": t["device_busy_ms"],
+            "device_busy_share": t["device_busy_ms"] / t["wall_ms"],
+            "device_kernels": t["device_kernels"],
+            "top_ops": [{"op": k, "calls": c, "device_ms": ms}
+                        for k, (c, ms) in rows[:top]]}
+
+
+def serving(arch: str, prompt_len: int, top: int) -> dict:
+    """Traces of ``launch.serve`` at full size (its weights and prompts,
+    batch 8), after its own untraced request: the prefill is one
+    ``generate`` of one token; the decode is one ``generate`` of
+    1 + ``DECODE_STEPS`` tokens less that prefill's trace."""
+    from repro_torch.launch import serve
+    out = serve.serve(arch, BATCH, prompt_len, 1 + DECODE_STEPS,
+                      full_size=True)
+    gen = lambda n: lambda: out["engine"].generate(out["prompts"], max_new=n)
+    prefill = _trace([gen(1)])
+    both = _trace([gen(1 + DECODE_STEPS)])
+    return {"prefill": _report(prefill, top),
+            "decode": {**_report(_minus(both, prefill), top),
+                       "steps": DECODE_STEPS}}
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -146,11 +196,20 @@ def main(argv: Optional[list] = None) -> dict:
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--update-dtype", choices=["f32", "bf16", "int8"],
                     default="f32")
+    ap.add_argument("--serve", default=None,
+                    help="trace serving this arch instead of a round")
+    ap.add_argument("--prompt-len", type=int, default=1024)
     args = ap.parse_args(argv)
-    r = full_round(args.clients, update_dtype=args.update_dtype)
-    out = {"card": torch.cuda.get_device_name(0), "n_params": r["index"].n,
-           "m": args.clients, "update_dtype": args.update_dtype,
-           **breakdown(r), "trace": trace(r, args.top)}
+    if args.serve:
+        out = {"card": torch.cuda.get_device_name(0), "arch": args.serve,
+               "batch": BATCH, "prompt_len": args.prompt_len,
+               **serving(args.serve, args.prompt_len, args.top)}
+    else:
+        r = full_round(args.clients, update_dtype=args.update_dtype)
+        out = {"card": torch.cuda.get_device_name(0),
+               "n_params": r["index"].n, "m": args.clients,
+               "update_dtype": args.update_dtype, **breakdown(r),
+               "trace": trace(r, args.top)}
     print(json.dumps(out))
     return out
 

@@ -1,0 +1,147 @@
+"""Batched serving: prefill, then greedy or temperature decode over a KV
+(or SSM state) cache.
+
+    python -m repro_torch.launch.serve [--arch smollm-135m|mamba2-130m]
+        [--batch 8] [--prompt-len 32] [--max-new 32] [--full-size]
+        [--device cpu]
+
+Runs on ``cuda`` unless ``--device`` says otherwise.  The model is cut to
+``reduced()`` size, as the JAX CLI cuts it, unless ``--full-size``; its
+weights are drawn from seed 0 and it decodes greedily.  Prints one JSON
+line: the timings, tokens/s and peak device memory, and the first two
+sequences.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.launch.steps import make_decode_step
+from repro_torch.models import model as model_mod
+
+
+class Engine:
+    """Minimal batched inference engine around prefill / decode_step."""
+
+    def __init__(self, cfg, params, *, window: Optional[int] = None,
+                 capacity: int = 512, cache_dtype=torch.bfloat16):
+        self.cfg, self.params = cfg, params
+        self.window, self.capacity = window, capacity
+        self.cache_dtype = cache_dtype
+        self._decode = make_decode_step(cfg, window=window)
+        self.timing = {}
+
+    @torch.no_grad()
+    def generate(self, tokens, *, max_new: int = 32, temperature: float = 0.0,
+                 seed: int = 0, return_logits: bool = False):
+        """tokens (B, S) -> (B, max_new) int32 numpy: greedy when
+        ``temperature`` is 0, else sampled with a generator seeded by
+        ``seed``.  With ``return_logits`` also the (B, max_new, V) f32
+        logits each token was picked from.  ``self.timing`` holds the
+        prefill's and the decode steps' seconds, each ended by a device
+        synchronisation."""
+        dev = self.params["embed"].device
+        tok = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                              device=dev)
+        B, S = tok.shape
+        if "attn" in self.cfg.layer_pattern and S + max_new - 1 > \
+                self.capacity:
+            raise ValueError(f"prompt {S} + {max_new - 1} decoded tokens "
+                             f"exceed the KV cache's {self.capacity}")
+        gen = (torch.Generator(device=dev).manual_seed(seed)
+               if temperature > 0.0 else None)
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: 0)
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = model_mod.prefill(
+            self.params, self.cfg, {"tokens": tok}, capacity=self.capacity,
+            window=self.window, cache_dtype=self.cache_dtype)
+        seen = [logits[:, -1]]
+        outs = [self._pick(logits[:, -1], temperature, gen)]
+        sync()
+        t1 = time.perf_counter()
+        for _ in range(max_new - 1):
+            logits, caches = self._decode(self.params, caches, outs[-1])
+            seen.append(logits[:, -1])
+            outs.append(self._pick(logits[:, -1], temperature, gen))
+        sync()
+        self.timing = {"prefill_s": t1 - t0,
+                       "decode_s": time.perf_counter() - t1,
+                       "decode_steps": max_new - 1}
+        out = torch.cat(outs, dim=1).to(torch.int32).cpu().numpy()
+        if return_logits:
+            return out, torch.stack(seen, 1).to(torch.float32).cpu().numpy()
+        return out
+
+    @staticmethod
+    def _pick(logits, temperature, gen):
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)[:, None]
+        probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)
+
+
+def serve(arch: str = "smollm-135m", batch: int = 8, prompt_len: int = 32,
+          max_new: int = 32, *, full_size: bool = False,
+          device=None) -> dict:
+    """The CLI's run: a model drawn from seed 0, ``batch`` synthetic
+    prompts, one greedy ``generate``.  Returns the tokens, the timings and, on a
+    card, its peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.tree import tree_map
+
+    dev = resolve_device(device)
+    cfg = get_arch(arch)
+    if not full_size:
+        cfg = cfg.reduced()
+    # drawn on the CPU, so a seed gives the same weights on every device
+    params = tree_map(lambda t: t.to(dev), model_mod.init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    eng = Engine(cfg, params, capacity=prompt_len + max_new + 8,
+                 window=cfg.attn_window)
+    prompts = synthetic.lm_stream(cfg.vocab_size, batch, prompt_len, seed=0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    tokens = eng.generate(prompts, max_new=max_new)
+    t = eng.timing
+    out = {"arch": arch, "full_size": full_size, "device": str(dev),
+           "batch": batch, "prompt_len": prompt_len, "max_new": max_new,
+           "prefill_ms": t["prefill_s"] * 1e3,
+           "decode_ms_per_token": (t["decode_s"] * 1e3
+                                   / max(t["decode_steps"], 1)),
+           "tokens_per_s": batch * max_new / (t["prefill_s"]
+                                              + t["decode_s"]),
+           "tokens": tokens, "engine": eng, "prompts": prompts}
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--full-size", action="store_true",
+                    help="the published configuration, not reduced()")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda)")
+    args = ap.parse_args(argv)
+    out = serve(args.arch, args.batch, args.prompt_len, args.max_new,
+                full_size=args.full_size, device=args.device)
+    print(json.dumps({**{k: v for k, v in out.items()
+                         if k not in ("tokens", "engine", "prompts")},
+                      "first": out["tokens"][:2].tolist()}), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

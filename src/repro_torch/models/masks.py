@@ -26,6 +26,7 @@ class WidthSpec:
     n_heads: int
     n_kv_heads: int
     d_ff: int
+    ssm_heads: int = 0
 
 
 def width_spec(cfg: ArchConfig, w: float) -> WidthSpec:
@@ -39,7 +40,8 @@ def width_spec(cfg: ArchConfig, w: float) -> WidthSpec:
         kv = heads = 0
     d_model = max(16, int(w * cfg.d_model) // 8 * 8) if w < 1.0 else cfg.d_model
     d_ff = max(8, int(w * cfg.d_ff) // 8 * 8) if (cfg.d_ff and w < 1.0) else cfg.d_ff
-    return WidthSpec(d_model, heads, kv, d_ff)
+    sh = max(1, int(round(w * cfg.ssm.n_heads(cfg.d_model)))) if cfg.ssm else 0
+    return WidthSpec(d_model, heads, kv, d_ff, sh)
 
 
 def _prefix(n_total: int, n_active: int) -> torch.Tensor:
@@ -53,6 +55,7 @@ class WidthMasks:
     heads: Optional[torch.Tensor]
     kv_heads: Optional[torch.Tensor]
     d_ff: Optional[torch.Tensor]
+    ssm_heads: Optional[torch.Tensor] = None
 
     def _map(self, fn) -> "WidthMasks":
         return WidthMasks(**{f.name: None if getattr(self, f.name) is None
@@ -81,7 +84,9 @@ def width_masks(cfg: ArchConfig, w: float) -> WidthMasks:
         d_model=_prefix(cfg.d_model, s.d_model),
         heads=_prefix(cfg.n_heads, s.n_heads) if cfg.n_heads else None,
         kv_heads=_prefix(cfg.n_kv_heads, s.n_kv_heads) if cfg.n_kv_heads else None,
-        d_ff=_prefix(cfg.d_ff, s.d_ff) if cfg.d_ff else None)
+        d_ff=_prefix(cfg.d_ff, s.d_ff) if cfg.d_ff else None,
+        ssm_heads=(_prefix(cfg.ssm.n_heads(cfg.d_model), s.ssm_heads)
+                   if cfg.ssm else None))
 
 
 def full_masks(cfg: ArchConfig) -> WidthMasks:

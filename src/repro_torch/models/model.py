@@ -1,5 +1,6 @@
-"""Top-level model API: train forward, losses, and the loader that carries
-the JAX package's parameters across.
+"""Top-level model API: train forward, losses, serving (prefill and
+decode over KV / SSM state caches) and the loader that carries the JAX
+package's parameters across.
 
 Entry points take width masks and depth gates; the global model is the
 runtime with all-ones masks.
@@ -12,11 +13,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_norm, matmul
 from repro_torch.models.masks import WidthMasks, full_masks
 from repro_torch.models.transformer import (_is_shape, init_params,  # noqa: F401
                                             param_shapes, stage_apply)
-from repro_torch.tree import from_paths, leaves_with_path
+from repro_torch.tree import from_paths, leaves_with_path, tree_map
 
 Params = Dict[str, Any]
 
@@ -49,12 +52,20 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     m = masks or full_masks(cfg).to(device)
     x = _embed(params, batch["tokens"], m)
     positions = torch.arange(x.shape[1], device=device)[None]
-    for i, (unit, reps) in enumerate(cfg.stages()):
-        g = gates if (i == 0 and gates is not None) else \
-            torch.ones((reps,), dtype=torch.float32, device=device)
-        x = stage_apply(params["stages"][i], unit, x, cfg, m, gates=g,
-                        positions=positions, window=cfg.attn_window)
+    for i, g in enumerate(_stage_gates(cfg, gates, device)):
+        x, _ = stage_apply(params["stages"][i], cfg.stages()[i][0], x, cfg, m,
+                           gates=g, positions=positions,
+                           window=cfg.attn_window)
     return _head(params, cfg, x, m)
+
+
+def _stage_gates(cfg: ArchConfig, gates0: Optional[torch.Tensor], device):
+    """Depth gates per stage: FedFA flexes stage 0; later stages stay full."""
+    gs = [torch.ones((reps,), dtype=torch.float32, device=device)
+          for _, reps in cfg.stages()]
+    if gates0 is not None:
+        gs[0] = gates0
+    return gs
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
@@ -90,8 +101,85 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     return cls_loss(logits, batch["labels"], class_mask)
 
 
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def init_caches(params: Params, cfg: ArchConfig, batch: int, capacity: int, *,
+                dtype=torch.bfloat16):
+    """Per-stage stacked caches mirroring params['stages'], on the params'
+    device: a KV cache of ``capacity`` positions per attention block (no
+    ring caches yet), a conv window and an f32 state per SSD block."""
+    device = params["embed"].device
+    out = []
+    for unit, reps in cfg.stages():
+        stage = []
+        for kind in unit:
+            if kind == "attn":
+                c = {"self": attn_mod.init_kv_cache(
+                    batch, capacity, cfg.n_kv_heads, cfg.head_dim, dtype,
+                    device)}
+            else:
+                c = {"ssm": ssm_mod.init_ssm_cache(batch, cfg.d_model,
+                                                   cfg.ssm, dtype, device)}
+            stage.append(tree_map(
+                lambda t: t[None].repeat((reps,) + (1,) * t.dim()), c))
+        out.append(tuple(stage))
+    return tuple(out)
+
+
+def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            *, masks=None, gates=None, capacity: Optional[int] = None,
+            window: Optional[int] = None, cache_dtype=torch.bfloat16,
+            chunk_size: Optional[int] = None):
+    """Process the prompt; returns (last-position logits (B, 1, V), caches).
+    The caches hold ``capacity`` positions (the prompt's length if None),
+    stored in ``cache_dtype`` (SSM states stay f32)."""
+    if chunk_size is not None:
+        raise NotImplementedError("chunked prefill is not yet ported")
+    device = params["embed"].device
+    m = masks or full_masks(cfg).to(device)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed(params, tokens, m)
+    caches = init_caches(params, cfg, B, capacity or S, dtype=cache_dtype)
+    win = window if window is not None else cfg.attn_window
+    positions = torch.arange(S, device=device)[None]
+    for i, g in enumerate(_stage_gates(cfg, gates, device)):
+        x, _ = stage_apply(params["stages"][i], cfg.stages()[i][0], x, cfg, m,
+                           gates=g, positions=positions, window=win,
+                           caches=caches[i])
+    return _head(params, cfg, x[:, -1:], m), caches
+
+
+def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor, caches,
+                *, masks=None, gates=None, pos: Optional[torch.Tensor] = None,
+                window: Optional[int] = None):
+    """One autoregressive step. token: (B, 1). Returns (logits (B, 1, V),
+    caches); the caches are updated in place."""
+    device = params["embed"].device
+    m = masks or full_masks(cfg).to(device)
+    if pos is None:
+        pos = _cache_pos(caches)
+    x = _embed(params, token, m)
+    positions = pos.reshape(1, 1).expand(token.shape[0], 1)
+    win = window if window is not None else cfg.attn_window
+    for i, g in enumerate(_stage_gates(cfg, gates, device)):
+        x, _ = stage_apply(params["stages"][i], cfg.stages()[i][0], x, cfg, m,
+                           gates=g, positions=positions, window=win,
+                           caches=caches[i], decode=True)
+    return _head(params, cfg, x, m), caches
+
+
+def _cache_pos(caches) -> torch.Tensor:
+    """Current length: the largest 'pos' of stage 0's first cache."""
+    return next(iter(caches[0][0].values())).pos.max()
+
+
 def _to_torch(a: np.ndarray) -> torch.Tensor:
     a = np.ascontiguousarray(a)
+    if not a.flags.writeable:               # jax's read-only buffers
+        a = a.copy()
     if a.dtype.name == "bfloat16":          # ml_dtypes.bfloat16: same bits
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)

@@ -1,9 +1,11 @@
-"""Dense decoder stack, FedFA width-masked and depth-gated.
+"""Decoder stack of dense (attention + FFN) and Mamba-2 SSD blocks, FedFA
+width-masked and depth-gated, with serving caches.
 
 Every block is residual (``x + gate_r * f_r(x)``), the property FedFA's
 layer grafting relies on (paper Appendix B).  Parameters are nested
 dicts/tuples shaped like the JAX package's: ``stages[i][j]`` holds the
-leaves of unit position j stacked over the stage's repeats.
+leaves of unit position j stacked over the stage's repeats; caches are
+stacked the same way.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ACTIVATIONS, apply_norm, apply_rope,
                                        dense_init, matmul)
 from repro_torch.models.masks import WidthMasks
@@ -21,8 +24,11 @@ from repro_torch.tree import from_paths, leaves_with_path, tree_map
 Params = Dict[str, Any]
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or any(k != "attn" for k in cfg.layer_pattern):
+_FAMILY_KINDS = {"dense": {"attn"}, "ssm": {"ssd"}}
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    if not set(cfg.layer_pattern) <= _FAMILY_KINDS.get(cfg.family, set()):
         raise NotImplementedError(f"family {cfg.family!r} is not yet ported")
     if cfg.rope_theta <= 0.0 or cfg.norm != "rmsnorm" or cfg.logit_softcap:
         raise NotImplementedError("learned positions, layernorm and logit "
@@ -35,18 +41,23 @@ def _is_shape(x) -> bool:
 
 def param_shapes(cfg: ArchConfig) -> Params:
     """Tree of parameter shapes (the structure ``init_params`` builds)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     D, F, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
 
-    def block(r):
+    def block(kind, r):
+        if kind == "ssd":
+            return {"ln": {"scale": (r, D)},
+                    "ssd": {k: (r,) + s for k, s in
+                            ssm_mod.ssd_param_shapes(D, cfg.ssm).items()}}
         return {"ln1": {"scale": (r, D)}, "ln2": {"scale": (r, D)},
                 "attn": {"wq": (r, D, H * hd), "wk": (r, D, K * hd),
                          "wv": (r, D, K * hd), "wo": (r, H * hd, D)},
                 "ffn": {"w_gate": (r, D, F), "w_up": (r, D, F),
                         "w_down": (r, F, D)}}
     p: Params = {"embed": (cfg.padded_vocab, D),
-                 "stages": tuple((block(reps),) for _, reps in cfg.stages()),
+                 "stages": tuple(tuple(block(kind, reps) for kind in unit)
+                                 for unit, reps in cfg.stages()),
                  "final_norm": {"scale": (D,)}}
     if not cfg.tie_embeddings:
         p["lm_head"] = (D, cfg.padded_vocab)
@@ -56,14 +67,19 @@ def param_shapes(cfg: ArchConfig) -> Params:
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype=torch.float32) -> Params:
     """Random init on the generator's device: fan-in normal for matrices,
-    zeros for RMSNorm scales (the scale enters as ``1 + scale``)."""
+    zeros for RMSNorm scales (the scale enters as ``1 + scale``), and the
+    SSD block's own rules (``ssm.init_ssd``)."""
     paths, values = [], []
     for path, shape in leaves_with_path(param_shapes(cfg),
                                         is_leaf=_is_shape):
         paths.append(path)
-        values.append(torch.zeros(shape, dtype=dtype, device=generator.device)
-                      if path[-1] == "scale"
-                      else dense_init(shape, dtype, generator))
+        if "ssd" in path:
+            values.append(ssm_mod.init_ssd(path[-1], shape, dtype, generator))
+        elif path[-1] == "scale":
+            values.append(torch.zeros(shape, dtype=dtype,
+                                      device=generator.device))
+        else:
+            values.append(dense_init(shape, dtype, generator))
     return from_paths(paths, values)
 
 
@@ -76,7 +92,8 @@ def _ffn_apply(p: Params, x, cfg: ArchConfig, m: WidthMasks):
 
 
 def _attn_apply(p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
-                positions, window=None):
+                positions, window=None, cache=None, decode=False):
+    """Self attention. x: (B, S, D). Returns (out, new_cache|None)."""
     B, S, _ = x.shape
     hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     q = matmul(x, p["wq"]).reshape(B, S, H, hd)
@@ -84,28 +101,65 @@ def _attn_apply(p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
     v = matmul(x, p["wv"]).reshape(B, S, K, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = attn_mod.attend(q, k, v, causal=True, window=window,
-                          head_mask=m.heads)
-    return matmul(out.reshape(B, S, H * hd), p["wo"])
+    new_cache = None
+    if cache is not None:
+        if window is not None:
+            raise NotImplementedError("ring caches and sliding windows on "
+                                      "the serving path are not yet ported")
+        new_cache = attn_mod.cache_extend(cache, k, v)
+    if decode:
+        out = attn_mod.attend_decode(q, new_cache, head_mask=m.heads)
+    else:
+        out = attn_mod.attend(q, k, v, causal=True, window=window,
+                              head_mask=m.heads)
+    return matmul(out.reshape(B, S, H * hd), p["wo"]), new_cache
 
 
-def _block_apply(p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
-                 gate, positions, window):
+def _block_apply(kind: str, p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
+                 gate, positions, window, cache=None, decode=False):
+    """One residual block. Returns (x, new_cache)."""
     dm = m.d_model
+    if kind == "ssd":
+        h = apply_norm(cfg.norm, x, p["ln"], dm, cfg.norm_eps)
+        if decode:
+            f, c_new = ssm_mod.ssd_decode(p["ssd"], h, cfg.ssm, cfg.d_model,
+                                          cache["ssm"], head_mask=m.ssm_heads,
+                                          d_model_mask=dm,
+                                          norm_eps=cfg.norm_eps)
+        else:
+            f, c_new = ssm_mod.ssd_forward(
+                p["ssd"], h, cfg.ssm, cfg.d_model, head_mask=m.ssm_heads,
+                d_model_mask=dm, norm_eps=cfg.norm_eps,
+                cache=None if cache is None else cache["ssm"])
+        x = x + (gate * f.to(torch.float32)).to(x.dtype)
+        return x, None if cache is None else dict(cache, ssm=c_new)
     h = apply_norm(cfg.norm, x, p["ln1"], dm, cfg.norm_eps)
-    a = _attn_apply(p["attn"], h, cfg, m, positions=positions, window=window)
+    a, c_new = _attn_apply(p["attn"], h, cfg, m, positions=positions,
+                           window=window,
+                           cache=None if cache is None else cache["self"],
+                           decode=decode)
     x = x + (gate * a.to(torch.float32)).to(x.dtype)
     h = apply_norm(cfg.norm, x, p["ln2"], dm, cfg.norm_eps)
     f = _ffn_apply(p["ffn"], h, cfg, m)
-    return x + (gate * f.to(torch.float32)).to(x.dtype)
+    x = x + (gate * f.to(torch.float32)).to(x.dtype)
+    return x, None if cache is None else dict(cache, self=c_new)
 
 
 def stage_apply(stage_params: Tuple, unit: Tuple[str, ...], x,
-                cfg: ArchConfig, m: WidthMasks, *, gates, positions, window):
-    """Loop over the repeat axis of one stage (the JAX ``lax.scan``)."""
+                cfg: ArchConfig, m: WidthMasks, *, gates, positions, window,
+                caches=None, decode=False):
+    """Loop over the repeat axis of one stage (the JAX ``lax.scan``).
+    ``caches`` (one stacked cache per unit position) are updated in place:
+    repeat r's new cache is cast to the stored dtype and written into slot
+    r, as the reference writes its scan carry.  Returns (x, caches)."""
     for r in range(gates.shape[0]):
-        for j in range(len(unit)):
+        for j, kind in enumerate(unit):
             p_r = tree_map(lambda t: t[r], stage_params[j])
-            x = _block_apply(p_r, x, cfg, m, gate=gates[r],
-                             positions=positions, window=window)
-    return x
+            cache_r = (None if caches is None
+                       else tree_map(lambda t: t[r], caches[j]))
+            x, new = _block_apply(kind, p_r, x, cfg, m, gate=gates[r],
+                                  positions=positions, window=window,
+                                  cache=cache_r, decode=decode)
+            if caches is not None:
+                tree_map(lambda c, n: c[r].copy_(n), caches[j], new)
+    return x, caches

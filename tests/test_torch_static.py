@@ -23,7 +23,8 @@ from repro.launch.train import client_arch_pool as jax_arch_pool
 from repro.models import masks as jmasks
 from repro.optim import optimizers as jopt
 from repro.optim import schedules as jsched
-from repro_torch.configs import ArchConfig, SMOLLM_135M, get_arch
+from repro_torch.configs import (ArchConfig, MAMBA2_130M, SMOLLM_135M,
+                                 get_arch)
 from repro_torch.core import flat, masking
 from repro_torch.data import partition, pipeline, synthetic
 from repro_torch.launch.train import client_arch_pool, fl_config
@@ -45,7 +46,13 @@ def _np(x):
 
 def _cfg_fields_equal(port: ArchConfig, ref) -> None:
     for f in dataclasses.fields(port):
-        assert getattr(port, f.name) == getattr(ref, f.name), f.name
+        a, b = getattr(port, f.name), getattr(ref, f.name)
+        if f.name == "ssm" and a is not None:     # the port's own SSMConfig
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
+            assert a.d_inner(port.d_model) == b.d_inner(ref.d_model)
+            assert a.n_heads(port.d_model) == b.n_heads(ref.d_model)
+        else:
+            assert a == b, f.name
     assert port.padded_vocab == ref.padded_vocab
     assert port.head_dim == ref.head_dim
     assert port.stages() == ref.stages()
@@ -53,19 +60,24 @@ def _cfg_fields_equal(port: ArchConfig, ref) -> None:
     assert port.section_bounds() == ref.section_bounds()
 
 
-@pytest.mark.parametrize("which", ["full", "reduced", "fixture"])
+@pytest.mark.parametrize("which", ["full", "reduced", "fixture",
+                                   "mamba2-full", "mamba2-reduced"])
 def test_config_copy_matches_reference(which):
     ref = jax_get_arch("smollm-135m")
+    mref = jax_get_arch("mamba2-130m")
     port = {"full": SMOLLM_135M, "reduced": SMOLLM_135M.reduced(),
-            "fixture": CFG}[which]
-    ref = {"full": ref, "reduced": ref.reduced(), "fixture": JCFG}[which]
+            "fixture": CFG, "mamba2-full": MAMBA2_130M,
+            "mamba2-reduced": MAMBA2_130M.reduced()}[which]
+    ref = {"full": ref, "reduced": ref.reduced(), "fixture": JCFG,
+           "mamba2-full": mref, "mamba2-reduced": mref.reduced()}[which]
     _cfg_fields_equal(port, ref)
 
 
 def test_unported_arch_raises():
     assert get_arch("smollm-135m") is SMOLLM_135M
+    assert get_arch("mamba2-130m") is MAMBA2_130M
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_arch("mamba2-130m")
+        get_arch("recurrentgemma-2b")
 
 
 def test_synthetic_copy_matches_reference():
@@ -147,7 +159,8 @@ def test_client_runtimes_match_reference(mode):
         np.testing.assert_array_equal(_np(a.graft(CFG)), _np(ja.graft(JCFG)))
         assert masks.width_spec(CFG, a.width_mult).__dict__ == {
             k: v for k, v in jmasks.width_spec(JCFG, a.width_mult).__dict__
-            .items() if k in ("d_model", "n_heads", "n_kv_heads", "d_ff")}
+            .items() if k in ("d_model", "n_heads", "n_kv_heads", "d_ff",
+                              "ssm_heads")}
     st = masks.stack_masks([a.masks(CFG) for a in archs])
     jst = jmasks.stack_masks([a.masks(JCFG) for a in jarchs])
     np.testing.assert_array_equal(_np(st.d_ff), _np(jst.d_ff))
