@@ -30,25 +30,35 @@
    the 4-layer smollm-135m), same weights, greedy, prompt 48 (an SSD chunk
    of 32 and a ragged tail), 8 new tokens: tokens equal; with an f32 cache
    the prefill and decode logits within rtol 1e-3 / atol 1e-4, with the
-   default bf16 cache within one bf16 step (2^-8) of the largest logit
-   (a stored value that the two devices' f32 sums put on either side of a
+   default bf16 cache within one bf16 step (2^-8) of the largest real
+   logit, vocabulary padding aside (a stored value that the two devices' f32 sums put on either side of a
    bf16 rounding boundary moves by one step).
+   Then the long prompt: the 4-layer smollm-135m with 2 prompts of 2,100
+   tokens (2100² > 2048², so prefill takes blocked attention) and 8 new
+   tokens, the card through the ``flash_attention`` kernel (exactly once
+   per layer) and the CPU through ``attend_blocked``, at the same
+   tolerances.
 8. Drives the serving path at full size: ``launch.serve`` with
    ``--arch mamba2-130m --full-size --batch 8 --prompt-len 1024
    --max-new 32`` (counts reset just before; fails unless
    ``ssd_intra_chunk`` ran exactly once per layer, 24 times, no other
    kernel ran, and every token is in the vocabulary), then smollm-135m at
    the serve defaults (batch 8, prompt 32, 32 new tokens; no kernel
-   launches); prints prefill ms, decode ms per token, tokens/s and peak
-   memory of that run and of a second, warm run of the same engine.
+   launches), then smollm-135m with a long prompt (batch 8, prompt 4096,
+   32 new tokens: ``flash_attention`` exactly once per layer, 30 times,
+   and nothing else); prints prefill ms, decode ms per token, tokens/s and
+   peak memory of each run and of a second, warm run of the same engine.
 9. Holds each kernel against its plain PyTorch version at the main path's
    shapes (weighted sums within 1e-5 of the summed magnitudes; thresholds
    bit-equal; trimmed sums of squares at rtol 1e-5; histogram counts
    equal; the SSD's y and state within atol 1e-4 + rtol 1e-4 and its L
-   within 1e-5), f32 and the quantized or bf16 variants, and
-   ``trimmed_sumsq`` also against ``quantile_fused``'s Σx² at that kernel's
-   thresholds; times the kernel, the plain version and, where one PyTorch
-   call computes the same function, that call.
+   within 1e-5; attention within 2e-5 at f32 and 5e-2 at bf16, the JAX
+   package's kernel tolerances), f32 and the quantized or bf16 variants,
+   and ``trimmed_sumsq`` also against ``quantile_fused``'s Σx² at that
+   kernel's thresholds; ``flash_attention`` also at the JAX package's
+   sweep of shapes and masks and on a ragged shape, and refusing inputs
+   that need a gradient; times the kernel, the plain version and, where
+   one PyTorch call computes the same function, that call.
 10. Prints the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure exits non-zero before the last line.  Without CUDA, or without
@@ -68,6 +78,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 BF16_STEP = 2.0 ** -8
 
 
@@ -90,10 +101,10 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     """(least time in ms, what bounds it) for moving ``nbytes`` and doing
-    ``ops`` f32 operations."""
-    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    ``ops`` operations at ``ops_per_s`` (the f32 rate unless given)."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
 
 
@@ -333,7 +344,25 @@ def kernel_checks(launches: dict) -> list:
         "plain_ms": time_ms(lambda: agg_ref.scaled_accum_ref(x, w, mask), 5),
         "bound_ms": b, "bound_by": by,
         "library_ms": time_ms(lambda: torch.mv(x.t(), w) * mask, 5)})
+    # the same cohort in bf16, upcast as the kernel reads it
+    xb = x.to(torch.bfloat16)
     del x, got, want, mag, err
+    got = agg_ops.scaled_accum(xb, w, mask)
+    want = agg_ref.scaled_accum_ref(xb, w, mask)
+    mag = agg_ref.scaled_accum_ref(xb.abs(), w.abs(), mask)
+    err = (got - want).abs()
+    check(bool((err <= 1e-5 * mag).all()), "scaled_accum bf16 disagrees")
+    b, by = bound(m * n * 2 + m * 4 + 2 * n * 4, 2 * m * n + n)
+    out.append({
+        "name": "scaled_accum", "dtype": "bf16", "route": "cuda",
+        "source": "src/repro_torch/csrc/scaled_accum.cu",
+        "replaces": "src/repro/kernels/fedfa_agg/kernel.py:71",
+        "launches": launches["f32"]["scaled_accum"],
+        "max_abs_err": float(err.max()),
+        "ms": time_ms(lambda: agg_ops.scaled_accum(xb, w, mask), 10),
+        "plain_ms": time_ms(lambda: agg_ref.scaled_accum_ref(xb, w, mask), 5),
+        "bound_ms": b, "bound_by": by, "library_ms": None})
+    del xb, got, want, mag, err
 
     # quant_accum: the quantized (m, N) cohort with the model's segment map
     # and an (m, S) weight table
@@ -479,40 +508,71 @@ def kernel_checks(launches: dict) -> list:
         "ms": time_ms(lambda: agg_ops.trimmed_sumsq(wv, tv), 10),
         "plain_ms": time_ms(lambda: agg_ref.trimmed_sumsq_ref(wv, tv), 5),
         "bound_ms": b, "bound_by": by, "library_ms": None})
+    wb = wv.to(torch.bfloat16)
+    got = agg_ops.trimmed_sumsq(wb, tv)
+    want = agg_ref.trimmed_sumsq_ref(wb, tv)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    b, by = bound(2 * n + 8, 3 * n)
+    out.append({
+        "name": "trimmed_sumsq", "dtype": "bf16", "route": "cuda",
+        "source": "src/repro_torch/csrc/trimmed_sumsq.cu",
+        "replaces": "src/repro/kernels/fedfa_agg/kernel.py:42",
+        "launches": launches["trimmed_norm"]["trimmed_sumsq"],
+        "max_abs_err": float((got - want).abs()),
+        "ms": time_ms(lambda: agg_ops.trimmed_sumsq(wb, tv), 10),
+        "plain_ms": time_ms(lambda: agg_ref.trimmed_sumsq_ref(wb, tv), 5),
+        "bound_ms": b, "bound_by": by, "library_ms": None})
     return out
 
 
-def serve_card_vs_cpu() -> None:
+def serve_card_vs_cpu(flash) -> None:
     """The serving Engine on the card and on the CPU at the reduced sizes,
-    same weights and prompts, greedy, with an f32 and a bf16 cache."""
+    same weights and prompts, greedy, 8 new tokens, with an f32 and a bf16
+    cache: 4 prompts of 48 tokens for mamba2-130m and the 4-layer
+    smollm-135m, then 2 prompts of 2,100 for smollm-135m, whose prefill
+    takes blocked attention — ``flash`` (the ``flash_attention`` kernel)
+    once per layer on the card, ``attend_blocked`` on the CPU."""
     from repro_torch.configs import get_arch
     from repro_torch.data import synthetic
     from repro_torch.launch import serve, train
     from repro_torch.models.model import init_params
     from repro_torch.tree import tree_map
 
-    cfgs = {"mamba2-130m": get_arch("mamba2-130m").reduced(),
-            "smollm-135m": train.fl_config("smollm-135m", "cls", 10,
-                                           full_size=False)}
-    for name, cfg in cfgs.items():
+    smollm = train.fl_config("smollm-135m", "cls", 10, full_size=False)
+    cases = [("mamba2-130m", get_arch("mamba2-130m").reduced(), 4, 48, 0),
+             ("smollm-135m", smollm, 4, 48, 0),
+             ("smollm-135m", smollm, 2, 2100, smollm.n_layers)]
+    for name, cfg, batch, prompt_len, flash_launches in cases:
         params = init_params(cfg, torch.Generator().manual_seed(0))
-        prompts = synthetic.lm_stream(cfg.vocab_size, 4, 48, seed=0)
+        prompts = synthetic.lm_stream(cfg.vocab_size, batch, prompt_len,
+                                      seed=0)
         for cache in (torch.float32, torch.bfloat16):
             out = {}
             for dev in ("cuda", "cpu"):
                 eng = serve.Engine(cfg, tree_map(lambda t: t.to(dev), params),
-                                   capacity=64, cache_dtype=cache)
+                                   capacity=prompt_len + 16,
+                                   cache_dtype=cache)
+                flash.launches = 0
                 out[dev] = eng.generate(prompts, max_new=8,
                                         return_logits=True)
+                want_launches = flash_launches if dev == "cuda" else 0
+                check(flash.launches == want_launches,
+                      f"{name} prompt {prompt_len} on {dev}: "
+                      f"{flash.launches} flash_attention launches, "
+                      f"expected {want_launches}")
             (tok, lg), (want_tok, want) = out["cuda"], out["cpu"]
             check(np.array_equal(tok, want_tok),
-                  f"{name} {cache} serving: card tokens {tok.tolist()} != "
-                  f"cpu {want_tok.tolist()}")
+                  f"{name} prompt {prompt_len} {cache} serving: card tokens "
+                  f"{tok.tolist()} != cpu {want_tok.tolist()}")
+            # one bf16 step of the largest real logit (vocab padding reads
+            # -1e30)
+            real = float(np.abs(want[..., :cfg.vocab_size]).max())
             tol = (dict(rtol=1e-3, atol=1e-4) if cache == torch.float32 else
-                   dict(rtol=0, atol=BF16_STEP * float(np.abs(want).max())))
+                   dict(rtol=0, atol=BF16_STEP * real))
             np.testing.assert_allclose(lg, want, **tol)
-            log(f"serving card vs cpu, {name}, {cache} cache: tokens equal, "
-                f"logits max abs diff {float(np.abs(lg - want).max()):.3g}")
+            log(f"serving card vs cpu, {name}, prompt {prompt_len}, {cache} "
+                f"cache: tokens equal, logits max abs diff "
+                f"{float(np.abs(lg - want).max()):.3g}")
 
 
 def serve_path(kernels, arch: str, batch: int, prompt_len: int,
@@ -618,6 +678,90 @@ def ssd_checks(launches: int) -> list:
     return out
 
 
+# the JAX package's sweep (tests/test_kernels.py): (B, Sq, Sk, H, K, hd)
+FLASH_SWEEP = [(2, 256, 256, 4, 2, 64), (1, 128, 128, 8, 8, 128),
+               (2, 192, 192, 4, 1, 64), (1, 64, 320, 2, 2, 32)]
+
+
+def attention_keep(Sq: int, Sk: int, causal: bool, window) -> np.ndarray:
+    """The (Sq, Sk) mask of the (q, k) pairs attention keeps."""
+    qpos, kpos = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    keep = np.ones((Sq, Sk), bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    return keep
+
+
+def flash_checks(launches: int) -> list:
+    """``flash_attention`` against its plain version: at the serving path's
+    shape (batch 8 x 4096 causal, 9 q and 3 kv heads of 64; f32 as the
+    path runs it, and bf16), at the JAX package's sweep (f32 and bf16 x
+    causal, window 96 and non-causal; causal cross-length is not used by
+    the stack) and at a ragged shape; within 2e-5 at f32 and 5e-2 at bf16
+    (atol and rtol, the JAX tests').  The bound counts the products of the
+    pairs the mask keeps, at the f32 rate for f32 inputs and the bf16
+    tensor-core rate for bf16 ones.  Then the wrapper's refusal of inputs
+    that need a gradient."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((8, 4096, 4096, 9, 3, 64), dt, True, None) for dt in (f32, bf16)]
+    cases += [(shape, dt, causal, window) for shape in FLASH_SWEEP
+              for dt in (f32, bf16)
+              for causal, window in ((True, None), (True, 96), (False, None))
+              if not (causal and shape[1] != shape[2])]
+    cases.append(((2, 100, 100, 4, 2, 48), f32, True, None))
+    out = []
+    for (B, Sq, Sk, H, K, hd), dt, causal, window in cases:
+        q, k, v = (randn(B, S, n, hd).to(dt)
+                   for S, n in ((Sq, H), (Sk, K), (Sk, K)))
+        kw = dict(causal=causal, window=window)
+        got = ops.attention(q, k, v, **kw).float()
+        want = ref.attention_ref(q, k, v, **kw).float()
+        tol = 2e-5 if dt == f32 else 5e-2
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        keep = attention_keep(Sq, Sk, causal, window)
+        nb = q.element_size()
+        b, by = bound(2 * B * (Sq * H + Sk * K) * hd * nb,
+                      4 * B * H * hd * int(keep.sum()),
+                      F32_OPS_PER_S if dt == f32 else BF16_OPS_PER_S)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = (None if window is None else
+                torch.as_tensor(keep, device="cuda"))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        big = Sq * Sk > 2048 * 2048
+        out.append({
+            "name": "flash_attention",
+            "dtype": "f32" if dt == f32 else "bf16",
+            "shape": [B, Sq, Sk, H, K, hd], "causal": causal,
+            "window": window, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+            "launches": launches,
+            "max_abs_err": float((got - want).abs().max()),
+            "ms": time_ms(lambda: ops.attention(q, k, v, **kw),
+                          10 if big else 20),
+            "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v, **kw),
+                                3 if big else 10),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": time_ms(sdpa, 5 if big else 20)})
+        del q, k, v, got, want
+    x = randn(1, 64, 2, 32).requires_grad_(True)
+    try:
+        ops.attention(x, randn(1, 64, 1, 32), randn(1, 64, 1, 32))
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("flash_attention ran on inputs that need a "
+                             "gradient")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -626,12 +770,13 @@ def main() -> int:
         log("chip_smoke: src/repro_torch not found beside the script")
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import MAMBA2_130M
+    from repro_torch.configs import MAMBA2_130M, SMOLLM_135M
     from repro_torch.kernels import build
     from repro_torch.kernels.fedfa_agg.ops import (QUANT_ACCUM, SCALED_ACCUM,
                                                    TRIMMED_SUMSQ)
     from repro_torch.kernels.fedfa_quantile.multilevel import HIST_LEVEL
     from repro_torch.kernels.fedfa_quantile.ops import QUANTILE_FUSED
+    from repro_torch.kernels.flash_attention.ops import FLASH_ATTENTION
     from repro_torch.kernels.ssd.ops import SSD_INTRA_CHUNK
 
     # full f32 products on the card, as the reference computes them
@@ -647,7 +792,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     kernels = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL, QUANT_ACCUM,
-               TRIMMED_SUMSQ, SSD_INTRA_CHUNK]
+               TRIMMED_SUMSQ, SSD_INTRA_CHUNK, FLASH_ATTENTION]
     t0 = time.perf_counter()
     build.build_all(kernels)
     log(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.1f} s")
@@ -675,16 +820,20 @@ def main() -> int:
     launches["trimmed_norm"] = tn["launches"]
     print(json.dumps({"trimmed_norm_path": tn}), flush=True)
     del g
-    serve_card_vs_cpu()
+    serve_card_vs_cpu(FLASH_ATTENTION)
     for arch, shape, expect in (
             ("mamba2-130m", (8, 1024, 32),     # one SSD launch per layer
              {"ssd_intra_chunk": MAMBA2_130M.n_layers}),
-            ("smollm-135m", (8, 32, 32), {})):
+            ("smollm-135m", (8, 32, 32), {}),
+            # 4096² > 2048²: blocked attention, one launch per layer
+            ("smollm-135m", (8, 4096, 32),
+             {"flash_attention": SMOLLM_135M.n_layers})):
         sp = serve_path(kernels, arch, *shape, expect)
-        launches[arch] = sp["launches"]
+        launches[f"{arch}@{shape[1]}"] = sp["launches"]
         print(json.dumps({"serve_path": sp, "card": card}), flush=True)
     print(json.dumps({"kernels": kernel_checks(launches) + ssd_checks(
-        launches["mamba2-130m"]["ssd_intra_chunk"])}), flush=True)
+        launches["mamba2-130m@1024"]["ssd_intra_chunk"]) + flash_checks(
+        launches["smollm-135m@4096"]["flash_attention"])}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

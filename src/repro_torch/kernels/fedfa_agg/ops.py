@@ -17,8 +17,8 @@ from repro_torch.kernels.fedfa_agg import ref
 
 SCALED_ACCUM = CudaKernel(
     "scaled_accum.cu", "scaled_accum",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                             ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
 QUANT_ACCUM = CudaKernel(
     "quant_accum.cu", "quant_accum",
     [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -26,7 +26,17 @@ QUANT_ACCUM = CudaKernel(
        ctypes.c_void_p])
 TRIMMED_SUMSQ = CudaKernel(
     "trimmed_sumsq.cu", "trimmed_sumsq",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+
+# the element types scaled_accum's x and trimmed_sumsq's w may have; both
+# kernels upcast them to f32 as they read them
+_FLOAT_ROWS = (torch.float32, torch.bfloat16)
+
+
+def _check_float_rows(name: str, x: torch.Tensor) -> None:
+    if x.dtype not in _FLOAT_ROWS:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected f32 or bf16")
 
 # the shared memory one block of quant_accum may use for its (m, S) table
 _MAX_TABLE_BYTES = 232448
@@ -34,20 +44,23 @@ _MAX_TABLE_BYTES = 232448
 
 def scaled_accum(x: torch.Tensor, weights: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
-    """Fused Σ_c weights[c]·x[c]·mask over the client axis: x (m, n) f32,
-    weights (m,), mask (n,) -> (n,) f32 (Alg. 1 line 19, M' and Γ)."""
+    """Fused Σ_c weights[c]·x[c]·mask over the client axis: x (m, n) f32
+    or bf16 (upcast as it is read), weights (m,) and mask (n,) f32 -> (n,)
+    f32 (Alg. 1 line 19, M' and Γ)."""
     if x.dim() != 2:
         raise ValueError(f"scaled_accum takes x (m, n), got {tuple(x.shape)}")
     m, n = x.shape
-    check_input("x", x, torch.float32, (m, n), x.device)
+    _check_float_rows("x", x)
+    check_input("x", x, x.dtype, (m, n), x.device)
     check_input("weights", weights, torch.float32, (m,), x.device)
     check_input("mask", mask, torch.float32, (n,), x.device)
     if x.device.type == "cpu":
         return ref.scaled_accum_ref(x, weights, mask)
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    SCALED_ACCUM.launch(x.data_ptr(), weights.data_ptr(), mask.data_ptr(),
-                        out.data_ptr(), m, n, sms, stream_of(x))
+    SCALED_ACCUM.launch(x.data_ptr(), DTYPE_CODES[x.dtype], weights.data_ptr(),
+                        mask.data_ptr(), out.data_ptr(), m, n, sms,
+                        stream_of(x))
     return out
 
 
@@ -94,12 +107,14 @@ def accumulate_quant(x: torch.Tensor, weights: torch.Tensor,
 
 
 def trimmed_sumsq(w: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Σ w²·[|w| <= t] over a flat f32 vector w (n,), threshold t a 0-d
-    f32 tensor on w's device -> 0-d f32.  Summed in a fixed order on the
-    card (per-block partials, then one block), so it is deterministic."""
+    """Σ w²·[|w| <= t] over a flat f32 or bf16 vector w (n,) (upcast as it
+    is read), threshold t a 0-d f32 tensor on w's device -> 0-d f32.
+    Summed in a fixed order on the card (per-block partials, then one
+    block), so it is deterministic."""
     if w.dim() != 1:
         raise ValueError(f"trimmed_sumsq takes w (n,), got {tuple(w.shape)}")
-    check_input("w", w, torch.float32, tuple(w.shape), w.device)
+    _check_float_rows("w", w)
+    check_input("w", w, w.dtype, tuple(w.shape), w.device)
     check_input("t", t, torch.float32, (), w.device)
     if w.device.type == "cpu":
         return ref.trimmed_sumsq_ref(w, t)
@@ -108,13 +123,15 @@ def trimmed_sumsq(w: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     blocks = max(1, min(sms * 8, -(-n // (256 * 8))))
     partial = torch.empty(blocks, dtype=torch.float32, device=w.device)
     out = torch.empty((), dtype=torch.float32, device=w.device)
-    TRIMMED_SUMSQ.launch(w.data_ptr(), t.data_ptr(), partial.data_ptr(),
-                         out.data_ptr(), n, blocks, stream_of(w))
+    TRIMMED_SUMSQ.launch(w.data_ptr(), DTYPE_CODES[w.dtype], t.data_ptr(),
+                         partial.data_ptr(), out.data_ptr(), n, blocks,
+                         stream_of(w))
     return out
 
 
 def trimmed_norm(w_flat: torch.Tensor, t) -> torch.Tensor:
-    """sqrt(Σ w²·[|w| <= t]) over a flat vector of any length."""
+    """sqrt(Σ w²·[|w| <= t]) over a flat f32 or bf16 vector of any
+    length."""
     t = torch.as_tensor(t, dtype=torch.float32,
                         device=w_flat.device).reshape(())
     return torch.sqrt(trimmed_sumsq(w_flat.reshape(-1).contiguous(), t))

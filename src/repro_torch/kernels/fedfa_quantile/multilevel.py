@@ -32,16 +32,17 @@ HIST_LEVEL = CudaKernel(
     + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
        ctypes.c_int, ctypes.c_void_p])
 
-def row_dtype_code(x: torch.Tensor, scale: Optional[torch.Tensor]) -> int:
-    """The kernels' code for the element type of ``x``; raises on a type
-    they do not take, and on quantized rows without scales."""
-    code = DTYPE_CODES.get(x.dtype)
-    if code is None:
+def kernel_rows(x: torch.Tensor, scale: Optional[torch.Tensor]):
+    """(rows, element-type code) as the quantile kernels read ``x``: f32
+    rows as they are; int8 / bf16 rows with scales in their own dtype (the
+    kernels dequantize them); int8 / bf16 rows without scales upcast to
+    f32, as the reference upcasts them.  Raises on any other dtype."""
+    if x.dtype not in DTYPE_CODES:
         raise TypeError(f"rows of dtype {x.dtype}: the quantile kernels take "
-                        f"f32, or int8 / bf16 with scales")
-    if code and scale is None:
-        raise TypeError(f"{x.dtype} rows need their dequant scales")
-    return code
+                        f"f32, int8 or bf16")
+    if scale is None:
+        x = x.to(torch.float32)
+    return x, DTYPE_CODES[x.dtype]
 
 
 def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
@@ -49,13 +50,14 @@ def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
     """One level's histogram planes: x (m, C) f32, seg_id (C,) int32 (−1
     inert), hi (m, 2, S) int32 -> counts (m, 2, S, 256) int32 and Σx²
     (m, 2, S, 256) f32 (see ``ref.hist_level_ref``).  With ``sc`` (m, S)
-    f32 the rows may be int8 or bf16, binned as |x·sc[row, seg]|."""
+    f32 the rows may be int8 or bf16, binned as |x·sc[row, seg]|; without
+    it such rows are upcast to f32 first."""
     if x.dim() != 2 or hi.dim() != 3:
         raise ValueError(f"hist_level takes x (m, C) and hi (m, 2, S), got "
                          f"{tuple(x.shape)} and {tuple(hi.shape)}")
+    x, code = kernel_rows(x, sc)
     m, C = x.shape
     S = hi.shape[2]
-    code = row_dtype_code(x, sc)
     check_input("x", x, x.dtype, (m, C), x.device)
     check_input("seg_id", seg_id, torch.int32, (C,), x.device)
     check_input("hi", hi, torch.int32, (m, 2, S), x.device)
@@ -87,8 +89,10 @@ def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
     (m, S) f32: t[c, s] = quantile(|x[c]| on segment s, q_seg[c, s]),
     ss = Σ x²·[|x| <= t].  ``scales`` (m, S) declares x quantized (int8 or
     bf16): the rows stay in their dtype and every level dequantizes them
-    per segment, so t and ss are in dequantized units.
+    per segment, so t and ss are in dequantized units.  int8 / bf16 rows
+    without scales are upcast to f32.
     """
+    x, _ = kernel_rows(x, scales)     # once, not at every level
     m = x.shape[0]
     S = seg_len.shape[0]
     r0, r1, frac = ref.interpolation_ranks(q_seg, seg_len[None, :])

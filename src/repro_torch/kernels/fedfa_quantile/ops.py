@@ -32,12 +32,12 @@ def quantile_fused(rows: torch.Tensor, q: torch.Tensor,
     trimmed Σ row²·[|row| <= t] — in one kernel.  rows (R, L) f32, q (R,).
     With ``scale`` (R,) f32 the rows may be int8 or bf16 and are
     dequantized in the kernel as |row·scale|; the outputs are in
-    dequantized units."""
+    dequantized units.  Without it such rows are upcast to f32 first."""
     if rows.dim() != 2 or rows.shape[1] < 1:
         raise ValueError(f"quantile_fused takes rows (R, L >= 1), got "
                          f"{tuple(rows.shape)}")
+    rows, code = multilevel.kernel_rows(rows, scale)
     R, L = rows.shape
-    code = multilevel.row_dtype_code(rows, scale)
     check_input("rows", rows, rows.dtype, (R, L), rows.device)
     check_input("q", q, torch.float32, (R,), rows.device)
     if scale is not None:

@@ -1,0 +1,74 @@
+"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``),
+the counterpart of ``repro.kernels.flash_attention.ops.attention``.
+
+On a CUDA tensor ``attention`` launches its kernel or raises; on a CPU
+tensor it runs the plain version in ``ref``.  The kernel has no backward
+(the TPU kernel has no ``custom_vjp``), so inputs on the card that require
+grad raise.  The TPU wrapper pads Sq and Sk to its tiles and hd to 128
+lanes for the MXU; the CUDA kernel bounds-checks its ragged tiles instead,
+so nothing is padded here.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel, check_input,
+                                       stream_of)
+from repro_torch.kernels.flash_attention import ref
+
+FLASH_ATTENTION = CudaKernel(
+    "flash_attention.cu", "flash_attention",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    + [ctypes.c_float, ctypes.c_void_p])
+
+# the kernel's head widths: multiples of 8 (16-byte rows of f32 or 8-byte
+# rows of bf16, read four at a time) up to its shared-memory tiles' 128
+_MAX_HD = 128
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True,
+              window: Optional[int] = None) -> torch.Tensor:
+    """Blockwise online-softmax attention: q (B, Sq, H, hd) against k, v
+    (B, Sk, K, hd), H % K == 0, all f32 or all bf16 -> (B, Sq, H, hd) in
+    q's dtype.  ``causal`` keeps ``kpos <= qpos`` (both counted from 0),
+    ``window`` keeps ``kpos > qpos - window``; softmax scale hd**-0.5."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"attention takes q (B, Sq, H, hd) and k, v "
+                         f"(B, Sk, K, hd), got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention takes f32 or bf16, got {q.dtype}")
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if min(B, Sq, Sk, H, K, hd) < 1 or H % K:
+        raise ValueError(f"attention needs non-empty shapes and H % K == 0, "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if window is not None and window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    check_input("q", q, q.dtype, (B, Sq, H, hd), q.device)
+    check_input("k", k, q.dtype, (B, Sk, K, hd), q.device)
+    check_input("v", v, q.dtype, (B, Sk, K, hd), q.device)
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    if any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("the flash-attention kernel has no "
+                                  "backward; train through attend_blocked")
+    if hd > _MAX_HD or hd % 8:
+        raise ValueError(f"the flash-attention kernel takes hd <= {_MAX_HD}, "
+                         f"a multiple of 8; got {hd}")
+    align = 4 * q.element_size()
+    if any(t.data_ptr() % align for t in (q, k, v)):
+        raise ValueError(f"attention's kernel reads q, k and v {align} bytes "
+                         f"at a time; their storage is not so aligned")
+    out = torch.empty_like(q)
+    FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           out.data_ptr(), DTYPE_CODES[q.dtype], B, Sq, Sk,
+                           H, K, hd, int(causal),
+                           -1 if window is None else window, hd ** -0.5,
+                           stream_of(q))
+    return out

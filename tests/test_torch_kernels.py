@@ -49,6 +49,43 @@ def test_scaled_accum_matches_reference(m, n):
         **tol)
 
 
+@pytest.mark.parametrize("m,n", [(3, 512), (8, 5000), (16, 12_345)])
+def test_scaled_accum_bf16_matches_reference(m, n):
+    """bf16 rows, upcast as they are read (weights and mask stay f32), at
+    the JAX sweep's shapes."""
+    rng = np.random.default_rng(m)
+    x = np.asarray(jnp.asarray(rng.normal(size=(m, n)), jnp.bfloat16))
+    w = rng.uniform(0, 1, m).astype(np.float32)
+    mask = (np.arange(n) < int(0.7 * n)).astype(np.float32)
+    before = agg_ops.SCALED_ACCUM.launches
+    out = agg_ops.scaled_accum(torch.from_numpy(x.astype(np.float32)).to(
+        torch.bfloat16), torch.from_numpy(w), torch.from_numpy(mask)).numpy()
+    assert agg_ops.SCALED_ACCUM.launches == before
+    xf = x.astype(np.float32)
+    tol = dict(rtol=1e-6,
+               atol=1e-6 * float((np.abs(w)[:, None] * np.abs(xf)).sum(0)
+                                 .max()))
+    np.testing.assert_allclose(out, np.asarray(jagg_ops.accumulate(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(mask), interpret=True)),
+        **tol)
+
+
+@pytest.mark.parametrize("n", [1000, 4096, 50_000])
+def test_trimmed_norm_bf16_matches_reference(n):
+    """bf16 vectors at the JAX sweep's lengths and threshold (its 0.95
+    quantile of |w|), against the interpret-mode kernel."""
+    w = np.asarray(jnp.asarray(np.random.default_rng(n).normal(size=n),
+                               jnp.bfloat16))
+    t = jnp.quantile(jnp.abs(jnp.asarray(w).astype(jnp.float32)), 0.95)
+    tw = torch.from_numpy(w.astype(np.float32)).to(torch.bfloat16)
+    got = agg_ops.trimmed_norm(tw, float(t))
+    want = jagg_ops.trimmed_norm(jnp.asarray(w), t, interpret=True)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    np.testing.assert_allclose(
+        float(agg_ops.trimmed_sumsq(tw, torch.tensor(float(t)))),
+        float(jagg_ref.trimmed_sumsq_ref(jnp.asarray(w), t)), rtol=1e-6)
+
+
 def test_interpolation_matches_jnp_quantile():
     """t = v0·(1−frac) + v1·frac rounds as jnp.quantile compiles it (one
     product fused into the add), bit for bit: on two-element rows

@@ -243,23 +243,30 @@ def test_segmented_stats_quantized_match_reference(dt):
 
 
 def test_quantized_rows_need_scales():
-    """Quantized rows without scales, and dtypes the kernels do not take,
-    raise on every device instead of being upcast."""
-    rows = torch.zeros((2, 8), dtype=torch.int8)
-    with pytest.raises(TypeError, match="scales"):
-        ops.quantile_fused(rows, torch.ones(2))
-    with pytest.raises(TypeError, match="scales"):
-        multilevel.hist_level(rows.to(torch.bfloat16),
-                              torch.zeros(8, dtype=torch.int32),
-                              torch.zeros((2, 2, 1), dtype=torch.int32), 24)
+    """Quantized rows are dequantized by their scales; without scales they
+    are upcast to f32, as the reference upcasts them (the kernels then read
+    f32 rows).  Dtypes neither package takes raise on every device."""
+    rows = torch.arange(-8, 8, dtype=torch.int8).reshape(2, 8)
+    q = torch.tensor([0.9, 0.5])
+    for dt in (torch.int8, torch.bfloat16):
+        x = rows.to(dt)
+        for fn in (ops.quantile_fused,
+                   multilevel.row_trimmed_stats_multilevel):
+            for got, want in zip(fn(x, q), fn(x.float(), q)):
+                assert torch.equal(got, want)
+        seg, hi = torch.zeros(8, dtype=torch.int32), \
+            torch.zeros((2, 2, 1), dtype=torch.int32)
+        for got, want in zip(multilevel.hist_level(x, seg, hi, 24),
+                             multilevel.hist_level(x.float(), seg, hi, 24)):
+            assert torch.equal(got, want)
     with pytest.raises(TypeError, match="int8 or bf16"):
         agg_ops.quant_accum(rows.float(), torch.ones((2, 1)),
                             torch.zeros(8, dtype=torch.int32), torch.ones(8))
-    with pytest.raises(TypeError, match="scales"):
-        multilevel.row_trimmed_stats_multilevel(rows, torch.ones(2))
     with pytest.raises(TypeError):
         ops.quantile_fused(rows.to(torch.float16), torch.ones(2),
                            torch.ones(2))
+    with pytest.raises(TypeError):
+        multilevel.row_trimmed_stats_multilevel(rows.to(torch.float16), q)
     meta = torch.empty((2, 8), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError):
         agg_ops.quant_accum(meta, torch.empty((2, 1), device="meta"),
@@ -268,6 +275,23 @@ def test_quantized_rows_need_scales():
     with pytest.raises(ValueError):
         agg_ops.trimmed_sumsq(torch.empty(8, device="meta"),
                               torch.empty((), device="meta"))
+
+
+@pytest.mark.parametrize("dt", QDTYPES)
+def test_unscaled_quantized_rows_match_reference(dt):
+    """int8 / bf16 rows without scales through the single-pass and the
+    multilevel kernels' paths: the reference upcasts them to f32."""
+    rows, _ = _quant_rows(dt, 3, 1537, 11)
+    q = _qm("mid", 3, 1537, 11)
+    for port, jax_fn in (
+            (ops.quantile_fused, functools.partial(
+                jq_ops.row_trimmed_stats, interpret=True)),
+            (multilevel.row_trimmed_stats_multilevel, functools.partial(
+                jml.row_trimmed_stats_multilevel, interpret=True))):
+        t, ss = port(_to_torch(rows), torch.from_numpy(q))
+        jt, jss = jax_fn(jnp.asarray(rows), jnp.asarray(q))
+        np.testing.assert_array_equal(_bits(t), _bits(np.asarray(jt)))
+        np.testing.assert_allclose(ss.numpy(), np.asarray(jss), rtol=1e-5)
 
 
 @pytest.mark.parametrize("dt", QDTYPES)
