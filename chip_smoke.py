@@ -50,15 +50,20 @@
    peak memory of each run and of a second, warm run of the same engine.
 9. Holds each kernel against its plain PyTorch version at the main path's
    shapes (weighted sums within 1e-5 of the summed magnitudes; thresholds
-   bit-equal; trimmed sums of squares at rtol 1e-5; histogram counts
-   equal; the SSD's y and state within atol 1e-4 + rtol 1e-4 and its L
-   within 1e-5; attention within 2e-5 at f32 and 5e-2 at bf16, the JAX
-   package's kernel tolerances), f32 and the quantized or bf16 variants,
-   and ``trimmed_sumsq`` also against ``quantile_fused``'s Σx² at that
-   kernel's thresholds; ``flash_attention`` also at the JAX package's
-   sweep of shapes and masks and on a ragged shape, and refusing inputs
-   that need a gradient; times the kernel, the plain version and, where
-   one PyTorch call computes the same function, that call.
+   bit-equal; trimmed sums of squares at rtol 1e-5; the SSD's y and state
+   within atol 1e-4 + rtol 1e-4 and its L within 1e-5; attention within
+   2e-5 at f32 and 5e-2 at bf16, the JAX package's kernel tolerances),
+   f32 and the quantized or bf16 variants, and ``trimmed_sumsq`` also
+   against ``quantile_fused``'s Σx² at that kernel's thresholds;
+   ``hist_level`` at every multilevel row shape of the main path and each
+   of the four levels, with the prefixes the plain level loop finds
+   (counts equal, Σx² at rtol 1e-5; at the second level also with the two
+   planes' prefixes differing), and its per-round total;
+   ``flash_attention`` also against the 3xTF32 emulation of its f32 route
+   (within 1e-5), at the JAX package's sweep of shapes and masks and on a
+   ragged shape, and refusing inputs that need a gradient; times the
+   kernel, the plain version and, where one PyTorch call computes the same
+   function, that call.
 10. Prints the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure exits non-zero before the last line.  Without CUDA, or without
@@ -79,6 +84,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense
 BF16_STEP = 2.0 ** -8
 
 
@@ -279,7 +285,8 @@ def model_index():
 
 def main_path_shapes(m: int):
     """(N, single-pass row shapes, multilevel row shapes) of the main path:
-    each leaf's rows (m·lead, rest), split by the JAX dispatch rule."""
+    each leaf's rows (m·lead, rest), split by the JAX dispatch rule; the
+    multilevel shapes as {shape: number of leaves}."""
     from repro_torch.kernels.fedfa_quantile.ops import _LANES, _SINGLE_PASS_ELEMS
     from repro_torch.launch import train
     from repro_torch.models.transformer import _is_shape, param_shapes
@@ -287,13 +294,13 @@ def main_path_shapes(m: int):
     cfg = train.fl_config("smollm-135m", "cls", 10, full_size=True)
     leaves = list(leaves_with_path(param_shapes(cfg), is_leaf=_is_shape))
     n = sum(int(np.prod(s)) for _, s in leaves)
-    rows = {(m * s[0], int(np.prod(s[1:]))) if path[0] == "stages"
-            else (m, int(np.prod(s))) for path, s in leaves}
-    single = sorted((r for r in rows
+    rows = [(m * s[0], int(np.prod(s[1:]))) if path[0] == "stages"
+            else (m, int(np.prod(s))) for path, s in leaves]
+    single = sorted((r for r in set(rows)
                      if -(-r[1] // _LANES) * _LANES <= _SINGLE_PASS_ELEMS),
                     key=lambda r: r[0] * r[1])
-    multi = sorted((r for r in rows if r not in single),
-                   key=lambda r: r[0] * r[1])
+    multi = {r: rows.count(r) for r in sorted(set(rows) - set(single),
+                                              key=lambda r: r[0] * r[1])}
     return n, single, multi
 
 
@@ -316,7 +323,7 @@ def kernel_checks(launches: dict) -> list:
     from repro_torch.core import flat
     from repro_torch.kernels.fedfa_agg import ops as agg_ops
     from repro_torch.kernels.fedfa_agg import ref as agg_ref
-    from repro_torch.kernels.fedfa_quantile import multilevel, ops, ref
+    from repro_torch.kernels.fedfa_quantile import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
@@ -324,7 +331,7 @@ def kernel_checks(launches: dict) -> list:
 
     # scaled_accum: the (m, N) cohort of smollm-135m, m = 8 clients
     m = 8
-    n, single, multi = main_path_shapes(m)
+    n, single, _ = main_path_shapes(m)
     x = randn(m, n)
     w = torch.rand(m, generator=gen, device="cuda") * 150 + 100
     mask = torch.ones(n, device="cuda")
@@ -435,55 +442,6 @@ def kernel_checks(launches: dict) -> list:
             "bound_ms": b, "bound_by": by, "library_ms": None})
         del rows
 
-    # hist_level: every multilevel row shape of the main path (wq/wo, the
-    # FFN, the embedding), S = 1, at the top level; and the whole multilevel
-    # quantile on the kernel against the sorting plain version.  f32 and
-    # quantized; timed at the largest shape.
-    for dtype in ("f32", "int8", "bf16"):
-        herr = 0.0
-        for R, L in multi:
-            if dtype == "f32":
-                x, s = randn(R, L), None
-            else:
-                x, s = quantized_rows(dtype, R, L, gen)
-            sc = None if s is None else s[:, None].contiguous()
-            seg1 = torch.zeros(L, dtype=torch.int32, device="cuda")
-            hi = torch.zeros((R, 2, 1), dtype=torch.int32, device="cuda")
-            cnt, sq = multilevel.hist_level(x, seg1, hi, 24, sc)
-            pcnt, psq = ref.hist_level_ref(x, seg1, hi, 24, sc)
-            check(torch.equal(cnt, pcnt),
-                  f"hist_level {dtype} counts differ at {(R, L)}")
-            torch.testing.assert_close(sq, psq, rtol=1e-5, atol=1e-6)
-            herr = max(herr, float((sq - psq).abs().max()))
-            q = 1.0 - 0.05 * torch.rand(R, generator=gen, device="cuda")
-            t, ss = multilevel.row_trimmed_stats_multilevel(x, q, s)
-            pt, pss = ref.row_trimmed_stats_ref(ref.dequantize_rows(x, s), q)
-            check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
-                  f"multilevel {dtype} thresholds differ at {(R, L)}")
-            torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0)
-            del x, pcnt, psq, pt, pss
-        R, L = multi[-1]
-        if dtype == "f32":
-            x, s = randn(R, L), None
-        else:
-            x, s = quantized_rows(dtype, R, L, gen)
-        sc = None if s is None else s[:, None].contiguous()
-        seg1 = torch.zeros(L, dtype=torch.int32, device="cuda")
-        hi = torch.zeros((R, 2, 1), dtype=torch.int32, device="cuda")
-        b, by = bound(R * L * BYTES[dtype] + (L + R * 2) * 4
-                      + (0 if sc is None else R * 4) + R * 2 * 256 * 8, R * L)
-        out.append({
-            "name": "hist_level", "dtype": dtype, "route": "cuda",
-            "source": "src/repro_torch/csrc/hist_level.cu",
-            "replaces": "src/repro/kernels/fedfa_quantile/multilevel.py:107",
-            "launches": launches[dtype]["hist_level"], "max_abs_err": herr,
-            "ms": time_ms(lambda: multilevel.hist_level(x, seg1, hi, 24, sc),
-                          10),
-            "plain_ms": time_ms(
-                lambda: ref.hist_level_ref(x, seg1, hi, 24, sc), 3),
-            "bound_ms": b, "bound_by": by, "library_ms": None})
-        del x
-
     # trimmed_sumsq: the (N,) f32 vector against its plain version, and
     # each row of the largest single-pass shape at the threshold
     # quantile_fused returned for it against that kernel's Σx²
@@ -522,6 +480,91 @@ def kernel_checks(launches: dict) -> list:
         "ms": time_ms(lambda: agg_ops.trimmed_sumsq(wb, tv), 10),
         "plain_ms": time_ms(lambda: agg_ref.trimmed_sumsq_ref(wb, tv), 5),
         "bound_ms": b, "bound_by": by, "library_ms": None})
+    return out
+
+
+def hist_checks(launches: dict) -> list:
+    """``hist_level`` at every multilevel row shape of the main path (wq/wo,
+    the FFN, the embedding; S = 1), f32 and quantized, at each of the four
+    levels with the prefixes the plain level loop finds for those rows:
+    counts equal to the plain version's, Σx² within rtol 1e-5; at the
+    second level also with the ceil path's prefix moved to the next bin, so
+    that the two planes differ; then the whole multilevel quantile against
+    the sorting plain version, thresholds bit-equal.  Each (shape, level) is
+    timed, and one row per dtype adds them up over the round's multilevel
+    leaves (launches × time against launches × bound)."""
+    from repro_torch.kernels.fedfa_quantile import multilevel, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    _, _, multi = main_path_shapes(8)
+    out = []
+    for dtype in ("f32", "int8", "bf16"):
+        total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+        for (R, L), leaves in multi.items():
+            if dtype == "f32":
+                x, s = torch.randn((R, L), generator=gen, device="cuda"), None
+            else:
+                x, s = quantized_rows(dtype, R, L, gen)
+            sc = None if s is None else s[:, None].contiguous()
+            seg1 = torch.zeros(L, dtype=torch.int32, device="cuda")
+            seg_len = torch.full((1,), L, dtype=torch.int64, device="cuda")
+            q = 1.0 - 0.05 * torch.rand((R, 1), generator=gen, device="cuda")
+            levels = multilevel.level_prefixes(x, seg1, seg_len, q, sc)
+            for j, (shift, hi) in enumerate(levels):
+                cases = [hi]
+                if j == 1:
+                    moved = hi.clone()
+                    moved[:, 1] += 1
+                    cases.append(moved)
+                for h in cases:
+                    cnt, sq = multilevel.hist_level(x, seg1, h, shift, sc)
+                    pcnt, psq = ref.hist_level_ref(x, seg1, h, shift, sc)
+                    what = (f"hist_level {dtype} {(R, L)} level {j}"
+                            + ("" if h is hi else ", planes differing"))
+                    check(torch.equal(cnt, pcnt), f"{what}: counts differ")
+                    torch.testing.assert_close(sq, psq, rtol=1e-5, atol=0,
+                                               msg=f"{what}: sums differ")
+                    err = float((sq - psq).abs().max())
+                    total["err"] = max(total["err"], err)
+                b, by = bound(R * L * BYTES[dtype] + (L + R * 2) * 4
+                              + (0 if sc is None else R * 4)
+                              + R * 2 * 256 * 8, R * L)
+                ms = time_ms(lambda: multilevel.hist_level(x, seg1, hi, shift,
+                                                           sc), 10)
+                plain = time_ms(lambda: ref.hist_level_ref(x, seg1, hi, shift,
+                                                           sc), 2)
+                for key, val in (("ms", ms), ("plain_ms", plain),
+                                 ("bound_ms", b)):
+                    total[key] += leaves * val
+                out.append({
+                    "name": "hist_level", "dtype": dtype, "shape": [R, L],
+                    "level": j, "route": "cuda",
+                    "source": "src/repro_torch/csrc/hist_level.cu",
+                    "replaces": "src/repro/kernels/fedfa_quantile/"
+                                "multilevel.py:107",
+                    "launches": launches[dtype]["hist_level"] // 2,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": b, "bound_by": by, "library_ms": None})
+            t, ss = multilevel.row_trimmed_stats_multilevel(x, q[:, 0], s)
+            pt, pss = ref.row_trimmed_stats_ref(ref.dequantize_rows(x, s),
+                                                q[:, 0])
+            check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
+                  f"multilevel {dtype} thresholds differ at {(R, L)}")
+            torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0)
+            del x, levels, pt, pss
+        # the round: each multilevel leaf once per level
+        n_launches = 4 * sum(multi.values())
+        check(launches[dtype]["hist_level"] == 2 * n_launches,
+              f"hist_level {dtype}: {launches[dtype]['hist_level']} launches "
+              f"in 2 rounds, expected {2 * n_launches}")
+        out.append({
+            "name": "hist_level", "dtype": dtype, "shape": "round",
+            "route": "cuda", "source": "src/repro_torch/csrc/hist_level.cu",
+            "replaces": "src/repro/kernels/fedfa_quantile/multilevel.py:107",
+            "launches": n_launches, "max_abs_err": total["err"],
+            "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"], "bound_by": "bytes",
+            "library_ms": None})
     return out
 
 
@@ -700,10 +743,14 @@ def flash_checks(launches: int) -> list:
     path runs it, and bf16), at the JAX package's sweep (f32 and bf16 x
     causal, window 96 and non-causal; causal cross-length is not used by
     the stack) and at a ragged shape; within 2e-5 at f32 and 5e-2 at bf16
-    (atol and rtol, the JAX tests').  The bound counts the products of the
-    pairs the mask keeps, at the f32 rate for f32 inputs and the bf16
-    tensor-core rate for bf16 ones.  Then the wrapper's refusal of inputs
-    that need a gradient."""
+    (atol and rtol, the JAX tests').  f32 is also held within 1e-5 of
+    ``attention_split_tf32_ref``, the 3xTF32 arithmetic the kernel's f32
+    route does (at the serving shape on its first two sequences; the two
+    differ only in the order of f32 sums and in where p is split).  The
+    bound counts the products of the pairs the mask keeps, three TF32
+    products each at the TF32 tensor-core rate for f32 inputs and one at
+    the bf16 rate for bf16 ones.  Then the wrapper's refusal of inputs that
+    need a gradient."""
     from repro_torch.kernels.flash_attention import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
@@ -723,11 +770,19 @@ def flash_checks(launches: int) -> list:
         want = ref.attention_ref(q, k, v, **kw).float()
         tol = 2e-5 if dt == f32 else 5e-2
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        split_err = None
+        if dt == f32:
+            n = min(B, 2)
+            emul = ref.attention_split_tf32_ref(q[:n], k[:n], v[:n], **kw)
+            torch.testing.assert_close(got[:n], emul, rtol=1e-5, atol=1e-5)
+            split_err = float((got[:n] - emul).abs().max())
+            del emul
         keep = attention_keep(Sq, Sk, causal, window)
         nb = q.element_size()
+        products = 4 * B * H * hd * int(keep.sum())
         b, by = bound(2 * B * (Sq * H + Sk * K) * hd * nb,
-                      4 * B * H * hd * int(keep.sum()),
-                      F32_OPS_PER_S if dt == f32 else BF16_OPS_PER_S)
+                      *((3 * products, TF32_OPS_PER_S) if dt == f32
+                        else (products, BF16_OPS_PER_S)))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = (None if window is None else
                 torch.as_tensor(keep, device="cuda"))
@@ -744,6 +799,7 @@ def flash_checks(launches: int) -> list:
             "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
             "launches": launches,
             "max_abs_err": float((got - want).abs().max()),
+            "max_abs_err_vs_3xtf32": split_err,
             "ms": time_ms(lambda: ops.attention(q, k, v, **kw),
                           10 if big else 20),
             "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v, **kw),
@@ -831,7 +887,8 @@ def main() -> int:
         sp = serve_path(kernels, arch, *shape, expect)
         launches[f"{arch}@{shape[1]}"] = sp["launches"]
         print(json.dumps({"serve_path": sp, "card": card}), flush=True)
-    print(json.dumps({"kernels": kernel_checks(launches) + ssd_checks(
+    print(json.dumps({"kernels": kernel_checks(launches)
+                      + hist_checks(launches) + ssd_checks(
         launches["mamba2-130m@1024"]["ssd_intra_chunk"]) + flash_checks(
         launches["smollm-135m@4096"]["flash_attention"])}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,272 +1,767 @@
-// flash_attention: blockwise online-softmax GQA attention.
+// flash_attention: blockwise online-softmax GQA attention on Hopper's
+// tensor cores.
 //   q (B, Sq, H, hd), k, v (B, Sk, K, hd), H % K == 0, all f32 or all bf16
-//   (element-type code 0 or 2), upcast on load -> o (B, Sq, H, hd) in q's
-//   type.  Mask: kpos < Sk, kpos <= qpos if causal, kpos > qpos - window if
-//   window >= 0 (positions counted from 0 on both axes).
+//   (element-type code 0 or 2) -> o (B, Sq, H, hd) in q's type.  Mask:
+//   kpos < Sk, kpos <= qpos if causal, kpos > qpos - window if window >= 0
+//   (positions counted from 0 on both axes).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
-// flash_attention (_attn_kernel).  Bound on the H100: operations -- at the
-// serving path's shape (8 x 4096 causal, 9 heads of 64) the products over
-// the causal triangle are 4 * B * H * hd * S(S+1)/2 = 155 GFLOP, 2.3 ms at
-// the 67 TFLOP/s f32 rate, against 0.06 ms for the bytes of q, k, v and o.
+// flash_attention (_attn_kernel, its pallas_call at :90), with the
+// reference's numbers: q scaled in f32 before the product, masked logits
+// -2^30, the running max, denominator and accumulator in f32, the 1e-30
+// floor on the denominator.
 //
-// Design: one block of 256 threads per (q tile of 64 rows, q head, batch);
-// a loop over the kv tiles of 64 takes the place of the TPU grid's
-// sequential kv axis.  The block keeps q (pre-scaled in f32, as the TPU
-// kernel scales it before the product), one k and one v tile, and the
-// 64 x 64 tile of probabilities in shared memory (rows padded by 4 floats,
-// so the float4 reads of 8 neighbouring rows fall in distinct banks); the
-// running max m, denominator l and the accumulator stay in registers.
-// Thread (ty, tx) of the 16 x 16 grid owns rows 4ty..4ty+3 of the tile:
-// s = q k^T for columns tx + 16c, c < 4 (a 4 x 4 register tile of f32
-// FMAs; neighbouring threads read neighbouring k rows),
-// the row max and sum by shuffles across the 16 threads of its half warp,
-// and the accumulator's columns 4g..4g+3 for g = tx and g = tx + 16.  f32
-// FMAs on the CUDA cores, no TF32: the f32 serving path is held to 2e-5.
-// GQA goes through the index (kv head = h / (H / K)), so repeated k and v
-// never reach memory.  kv tiles that the causal or window mask empties
-// entirely are skipped: for them the reference's update is an exact no-op
-// (m unchanged, corr = 1, p = 0), so no bit changes and the causal work
-// halves.  Ragged Sq, Sk and any hd <= 128 that is a multiple of 8 are
-// handled by bounds checks and zero-filled tiles; nothing is padded in
-// device memory.  The heaviest causal q tiles are launched first.
+// Bound on the H100, at the serving path's shape (8 x 4096 causal, 9 q and
+// 3 kv heads of 64): operations.  The products over the causal triangle
+// are 4 * B * H * hd * S(S+1)/2 = 154.7 GFLOP: 0.156 ms at the 989 TFLOP/s
+// bf16 tensor-core rate, 0.938 ms for the three TF32 products of the f32
+// route at 495 TFLOP/s (the f32 CUDA-core route of the first version was
+// bounded at 2.308 ms by 67 TFLOP/s); q, k, v and o are 201 MB (f32),
+// 0.060 ms.  The 604 M exponentials of the triangle take 0.15 ms at the
+// SFUs' 16 ex2 per clock and SM, beside the bf16 bound: on bf16 input the
+// kernel is bounded by both.
+//
+// Design.  A block serves W q heads of one kv head (W divides H / K and
+// is at most 3; 3 on smollm) at one tile of 64 q positions: one warpgroup
+// (128 threads) a head, so each K and V tile is read once for the W heads
+// (one head a block measures slower: launch/ablate.py).  Each kv tile of BK
+// rows (bf16 128, f32 64; 64 and 32 at hd > 64) comes in by cp.async into
+// a ring of two stages, the next tile's copy in flight while the current
+// one is used.  Both products run on the tensor cores through wgmma with
+// f32 accumulators in registers: s = q k^T with q and k from shared
+// memory, then o += p v with p from registers.
+//  * bf16 (m64nNk16): q is rounded to bf16 once scaled.  hd = 64 scales by
+//    0.125, a power of two, so the scaled q is exact; other widths round
+//    it once.  p is rounded to bf16 for the second product, as SDPA does;
+//    its row sum stays f32.  v is read as the transposed (MN-major) B
+//    operand, so the tile is multiplied as it was copied.
+//  * f32 by 3xTF32 (m64nNk8): each operand a splits into hi = tf32(a)
+//    and lo = tf32(a - hi) (cvt.rna), and a product is lo.hi' + hi.lo' +
+//    hi.hi', the small terms accumulated first; the dropped lo.lo' is
+//    2^-22 of the product, which keeps the f32 path's 2e-5.  TF32 wgmma
+//    takes both operands K-major, so the v tile is transposed in shared
+//    memory as it is split.  The accumulator gives a thread columns
+//    (2t, 2t+1) of each 8 where the TF32 A fragment wants (t, t + 4), so
+//    the kv rows of the transposed v tile are stored in that permuted
+//    order and p goes from the accumulator to the A fragment unmoved.
+//    Each tile's p v is taken into a fresh accumulator and added to o with
+//    f32 adds: summed by the tensor cores over all 64 kv tiles of the
+//    serving path, o drifts from the exact 3xTF32 arithmetic by several
+//    times what the split itself loses.
+//  * Shared tiles use the canonical no-swizzle core-matrix layout (8 rows
+//    of 16 bytes, 128 contiguous bytes a core matrix); hd is padded with
+//    zeros to HDP (32, 64 or 128) inside shared memory only.
+//  * The softmax runs in the accumulator's layout: a thread holds two rows
+//    of the tile, each reduced over the four lanes of its quad by
+//    shuffles; the rescale corr is applied to the accumulator in
+//    registers.  The mask is applied only to the tiles it cuts (the last,
+//    ragged one, the causal diagonal, the window's edge).  e^x is expf on
+//    the f32 route, as the reference's; on the bf16 route, whose p is
+//    rounded to bf16 for the product anyway, one ex2.approx (2 ulp).
+// What holds it back (python -m repro_torch.launch.ablate; PERF.md): the
+// k and v copies, each tile read again from L2 by every q tile of its
+// head group (the loop with all of its compute taken out keeps most of
+// the bf16 time), then the CUDA-core work around the products (softmax;
+// on f32 the split pass), which the warpgroups of a block, held in step by
+// the ring's barriers, do while the tensor cores wait.  Taking out either
+// product alone saves little.
+// kv tiles that the causal or window mask empties entirely are skipped:
+// for them the reference's update is an exact no-op (m unchanged, corr =
+// 1, p = 0).  Ragged Sq and Sk are handled by zero-filled copies and the
+// mask; nothing is padded in device memory.  The heaviest causal q tiles
+// are launched first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64, kBK = 64, kThreads = 256, kMaxHd = 128;
-constexpr int kPLd = kBK + 4;                 // row stride of the p tile
+constexpr int kBQ = 64;                       // q rows of a warpgroup
+constexpr int kMaxHeadsPerBlock = 3;
+constexpr int kMaxHd = 128;
+constexpr int kSmemMax = 232448;              // a block's shared memory
 constexpr float kNegInf = -1073741824.0f;     // -2^30, the reference's
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&a);
-  raw.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
+// ---- wgmma: D (64 x N, f32) += A (64 x K) B (N x K)^T ----------------
+// ss: A and B from shared-memory descriptors, both K-major.  rs: A from
+// registers; bf16 B transposed (MN-major), tf32 B K-major.
+__device__ __forceinline__ void wgmma_ss_bf16_n32(
+    float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// Rows [0, rows) of a tile whose row r starts at src + r * row_stride, times
-// mul (rounded in f32), into dst (64 rows of stride ld); rows past `rows`
-// are zero, so they add nothing to any sum.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, int ld,
-                                          const T* __restrict__ src,
-                                          int64_t row_stride, int rows,
-                                          int hd, float mul) {
-  const int per_row = hd / 4;
-  for (int c = threadIdx.x; c < kBQ * per_row; c += kThreads) {
-    const int r = c / per_row, d = (c - r * per_row) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) {
-      v = load4(src + r * row_stride + d);
-      v = make_float4(__fmul_rn(v.x, mul), __fmul_rn(v.y, mul),
-                      __fmul_rn(v.z, mul), __fmul_rn(v.w, mul));
-    }
-    store4(dst + r * ld + d, v);
+__device__ __forceinline__ void wgmma_ss_bf16_n64(
+    float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_bf16_n128(
+    float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32_n32(
+    float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32_n64(
+    float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_bf16_vt_n32(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_bf16_vt_n64(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_bf16_vt_n128(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32_n32(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32_n64(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32_n128(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// byte offset of element (row, col) in a core-matrix tile whose 8-row
+// groups are sbo bytes apart
+__device__ __forceinline__ int cm_off(int row, int col, int es, int sbo) {
+  const int e16 = 16 / es;
+  return (row >> 3) * sbo + (col / e16) * 128 + (row & 7) * 16 +
+         (col % e16) * es;
+}
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// thread writes to shared memory, made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>  // until at most N copy groups of this thread are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
+                                       uint64_t b, int scale_d, float) {
+  if constexpr (N == 32) wgmma_ss_tf32_n32(d, a, b, scale_d);
+  else wgmma_ss_tf32_n64(d, a, b, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
+                                       uint64_t b, int scale_d,
+                                       __nv_bfloat16) {
+  if constexpr (N == 32) wgmma_ss_bf16_n32(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_ss_bf16_n64(d, a, b, scale_d);
+  else wgmma_ss_bf16_n128(d, a, b, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t b,
+                                       float) {
+  if constexpr (N == 32) wgmma_rs_tf32_n32(d, a, b, 1);
+  else if constexpr (N == 64) wgmma_rs_tf32_n64(d, a, b, 1);
+  else wgmma_rs_tf32_n128(d, a, b, 1);
+}
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t b,
+                                       __nv_bfloat16) {
+  if constexpr (N == 32) wgmma_rs_bf16_vt_n32(d, a, b, 1);
+  else if constexpr (N == 64) wgmma_rs_bf16_vt_n64(d, a, b, 1);
+  else wgmma_rs_bf16_vt_n128(d, a, b, 1);
+}
+
+// e^x: expf on the f32 route, as the reference; on the bf16 route, whose
+// probabilities are rounded to bf16 (2^-9) for the product, one ex2.approx
+// (2 ulp) of x log2(e)
+template <bool kExact>
+__device__ __forceinline__ float exp_of(float x) {
+  if constexpr (kExact) {
+    return expf(x);
+  } else {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+    return y;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Shared-memory plan of one block, in bytes: W q tiles (64 x HDP; two,
+// hi and lo, on the f32 route), a ring of kStages stages of k and v tiles
+// (BK x HDP), and on the f32 route the lo part of k and the hi and lo parts
+// of the transposed v (HDP x BK).  Two stages: the next tile is copied
+// while the current one is used.  (More stages on the bf16 route measured
+// no faster: the copies are not what it waits for.)
+template <typename T, int HDP, int BK>
+struct Plan {
+  static constexpr bool kSplit = sizeof(T) == 4;
+  static constexpr int kStages = 2;
+  static constexpr int es = sizeof(T);
+  static constexpr int q_bytes = kBQ * HDP * es;
+  static constexpr int tile_bytes = BK * HDP * es;
+  static constexpr int sbo_rows = HDP * es * 8;    // k, v, q: rows of HDP
+  static constexpr int sbo_vt = BK * es * 8;       // transposed v: rows of BK
+  static constexpr size_t smem(int W) {
+    return (size_t)(kSplit ? 2 : 1) * W * q_bytes +
+           (size_t)(2 * kStages + (kSplit ? 3 : 0)) * tile_bytes;
+  }
+};
+
+template <typename T, int HDP, int BK>
+__global__ void __launch_bounds__(128 * kMaxHeadsPerBlock, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq,
                        int Sk, int H, int KH, int hd, int causal, int window,
-                       float scale) {
-  extern __shared__ float4 smem4[];
-  const int ld = hd + 4;
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * ld;
-  float* Vs = Ks + kBK * ld;
-  float* Ps = Vs + kBK * ld;
+                       float scale, int W) {
+  using P = Plan<T, HDP, BK>;
+  constexpr int es = P::es;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* q_hi = smem;
+  unsigned char* q_lo = q_hi + W * P::q_bytes;          // f32 route
+  unsigned char* stage = smem + (P::kSplit ? 2 : 1) * W * P::q_bytes;
+  // stage s: k at stage + 2s * tile, v at stage + (2s + 1) * tile
+  unsigned char* k_lo = stage + 2 * P::kStages * P::tile_bytes;  // f32
+  unsigned char* vt_hi = k_lo + P::tile_bytes;
+  unsigned char* vt_lo = vt_hi + P::tile_bytes;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KH);
-  const int q0 = qt * kBQ;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int nthreads = blockDim.x;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // Block n of the (q tile, head group, batch) grid, linearized, takes q
+  // tile n / groups of head group n % groups: consecutive blocks read the
+  // k and v of different head groups (not all the same lines of one), and
+  // the heaviest causal q tiles go first
+  const int G = H / KH, blocks_per_kv = G / W;
+  const int groups = gridDim.y * gridDim.z;
+  const int64_t n = blockIdx.x + (int64_t)gridDim.x *
+                                     (blockIdx.y + (int64_t)gridDim.y *
+                                                       blockIdx.z);
+  const int grp = (int)(n % groups), gy = grp % gridDim.y;
+  const int kvh = gy / blocks_per_kv;
+  const int h = kvh * G + (gy % blocks_per_kv) * W + wg;
+  const int b = grp / gridDim.y;
+  const int q0 = (gridDim.x - 1 - (int)(n / groups)) * kBQ;
   const int64_t q_stride = (int64_t)H * hd, kv_stride = (int64_t)KH * hd;
 
-  load_tile(Qs, ld, q + (((int64_t)b * Sq + q0) * H + h) * hd, q_stride,
-            min(kBQ, Sq - q0), hd, scale);
+  // zero the stages: the columns past hd stay zero in every copy
+  for (int i = tid; i < P::kStages * P::tile_bytes / 8; i += nthreads)
+    reinterpret_cast<uint4*>(stage)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
 
-  float m[4], l[4];
-  float4 acc[4][2];
+  // this warpgroup's q tile, scaled in f32 (then split, or rounded to
+  // bf16): 16-byte chunks, every load issued before the first store;
+  // columns past hd and rows past Sq are zero
+  {
+    constexpr int E = 16 / es;                    // elements a chunk
+    constexpr int kChunks = kBQ * HDP / E / 128;  // a thread's
+    const T* qg = q + ((int64_t)b * Sq + q0) * q_stride + (int64_t)h * hd;
+    uint4 raw[kChunks];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-    acc[i][0] = acc[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int u = 0; u < kChunks; ++u) {
+      const int i = (tid & 127) + 128 * u, r = i / (HDP / E);
+      const int c = (i - r * (HDP / E)) * E;
+      raw[u] = (r < Sq - q0 && c < hd)
+                   ? *reinterpret_cast<const uint4*>(qg + r * q_stride + c)
+                   : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const int i = (tid & 127) + 128 * u, r = i / (HDP / E);
+      const int c = (i - r * (HDP / E)) * E;
+      const T* e = reinterpret_cast<const T*>(&raw[u]);
+      float x[E];
+#pragma unroll
+      for (int k = 0; k < E; ++k) x[k] = __fmul_rn(to_f32(e[k]), scale);
+      const int off = cm_off(r, c, es, P::sbo_rows);  // one 16-byte chunk
+      if constexpr (P::kSplit) {
+        float4 hi, lo;
+        float* hp = &hi.x;
+        float* lp = &lo.x;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          hp[k] = tf32_rna(x[k]);
+          lp[k] = tf32_rna(x[k] - hp[k]);
+        }
+        *reinterpret_cast<float4*>(q_hi + wg * P::q_bytes + off) = hi;
+        *reinterpret_cast<float4*>(q_lo + wg * P::q_bytes + off) = lo;
+      } else {
+        uint4 packed;
+        uint32_t* w = &packed.x;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w[k] = pack_bf16(x[2 * k], x[2 * k + 1]);
+        *reinterpret_cast<uint4*>(q_hi + wg * P::q_bytes + off) = packed;
+      }
+    }
   }
-  const int hd4 = hd / 4;
-  const bool own0 = tx < hd4, own1 = tx + 16 < hd4;
 
-  const int nk = (Sk + kBK - 1) / kBK;
-  const int j_end = causal ? min(nk, (q0 + kBQ - 1) / kBK + 1) : nk;
-  for (int j = 0; j < j_end; ++j) {
-    const int k0 = j * kBK;
-    if (window >= 0 && k0 + kBK - 1 <= q0 - window) continue;
-    __syncthreads();  // the last tile's k, v and p are read
-    const int64_t kv_off = (((int64_t)b * Sk + k0) * KH + kvh) * hd;
-    const int kv_rows = min(kBK, Sk - k0);
-    load_tile(Ks, ld, k + kv_off, kv_stride, kv_rows, hd, 1.f);
-    load_tile(Vs, ld, v + kv_off, kv_stride, kv_rows, hd, 1.f);
-    __syncthreads();
+  // kv tiles [j_begin, j_end): those the mask leaves something of
+  const int nk = (Sk + BK - 1) / BK;
+  const int j_end = causal ? min(nk, (q0 + kBQ - 1) / BK + 1) : nk;
+  int j_begin = 0;
+  if (window >= 0 && q0 - window >= BK - 1)
+    j_begin = (q0 - window - (BK - 1)) / BK + 1;
 
-    // s = (q * scale) k^T on rows 4ty + i, columns tx + 16c
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-    for (int d = 0; d < hd; d += 4) {
-      float4 qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = load4(Qs + (ty * 4 + i) * ld + d);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kb[c] = load4(Ks + (tx + 16 * c) * ld + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[i][c] = fmaf(qa[i].x, kb[c].x, s[i][c]);
-          s[i][c] = fmaf(qa[i].y, kb[c].y, s[i][c]);
-          s[i][c] = fmaf(qa[i].z, kb[c].z, s[i][c]);
-          s[i][c] = fmaf(qa[i].w, kb[c].w, s[i][c]);
-        }
+  // tile j's k and v rows into stage s, 16 bytes a thread, as one copy
+  // group (empty past the last tile, so that every thread counts the same
+  // groups); rows past Sk are zero-filled
+  const int nch = hd * es / 16;                 // 16-byte chunks of a row
+  const T* kg = k + (int64_t)b * Sk * kv_stride + (int64_t)kvh * hd;
+  const T* vg = v + (int64_t)b * Sk * kv_stride + (int64_t)kvh * hd;
+  auto load_tile = [&](int j, int s) {
+    if (j >= j_end) {
+      cp_async_commit();
+      return;
     }
-
-    // mask, online softmax, p into shared memory, rescale the accumulator
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      bool keep[4];
-      float rmax = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = k0 + tx + 16 * c;
-        keep[c] = kpos < Sk && (!causal || kpos <= qpos) &&
-                  (window < 0 || kpos > qpos - window);
-        s[i][c] = keep[c] ? s[i][c] : kNegInf;
-        rmax = fmaxf(rmax, s[i][c]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      float p[4], rsum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        p[c] = keep[c] ? expf(s[i][c] - m_new) : 0.f;
-        rsum += p[c];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) Ps[(ty * 4 + i) * kPLd + tx + 16 * c] = p[c];
-#pragma unroll
-      for (int g = 0; g < 2; ++g) {
-        acc[i][g].x *= corr;
-        acc[i][g].y *= corr;
-        acc[i][g].z *= corr;
-        acc[i][g].w *= corr;
-      }
+    const int k0 = j * BK;
+    unsigned char* ks = stage + 2 * s * P::tile_bytes;
+    unsigned char* vs = ks + P::tile_bytes;
+    for (int c = tid; c < BK * nch; c += nthreads) {
+      const int rg = c / (8 * nch), rem = c - rg * 8 * nch;
+      const int ch = rem >> 3, row = rg * 8 + (rem & 7);
+      const int off = rg * P::sbo_rows + ch * 128 + (rem & 7) * 16;
+      const bool in = k0 + row < Sk;
+      const int64_t src = in ? (int64_t)(k0 + row) * kv_stride + ch * (16 / es)
+                             : 0;
+      cp_async16(ks + off, kg + src, in ? 16 : 0);
+      cp_async16(vs + off, vg + src, in ? 16 : 0);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < P::kStages - 1; ++i) load_tile(j_begin + i, i);
 
-    // acc += p v on rows 4ty + i, columns 4g..4g+3 for g = tx, tx + 16
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pa[4];
+  float acc[HDP / 2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = load4(Ps + (ty * 4 + i) * kPLd + kk);
+  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const int r0 = 16 * warp + g;                 // rows r0 and r0 + 8
+  const int qpos0 = q0 + r0, qpos1 = qpos0 + 8;
+
+  for (int j = j_begin, it = 0; j < j_end; ++j, ++it) {
+    const int s = it % P::kStages;
+    cp_async_wait<P::kStages - 2>();
+    fence_async_smem();
+    __syncthreads();  // tile j is in; every warpgroup is done with j - 1
+    load_tile(j + P::kStages - 1, (it + P::kStages - 1) % P::kStages);
+    unsigned char* ks = stage + 2 * s * P::tile_bytes;
+    unsigned char* vs = ks + P::tile_bytes;
+    if constexpr (P::kSplit) {
+      // k in place -> hi, and its lo; v -> transposed hi and lo, its kv
+      // rows permuted within each 8 to the TF32 A fragment's order.  A
+      // 16-byte chunk at a time: columns d..d+3 of one kv row, which in the
+      // transposed tile are 4 rows of one core matrix, 16 bytes apart.
+      for (int i = tid; i < BK * HDP / 4; i += nthreads) {
+        float4* kp = reinterpret_cast<float4*>(ks) + i;
+        const float4 x = *kp;
+        const float4 hi = make_float4(tf32_rna(x.x), tf32_rna(x.y),
+                                      tf32_rna(x.z), tf32_rna(x.w));
+        *kp = hi;
+        reinterpret_cast<float4*>(k_lo)[i] =
+            make_float4(tf32_rna(x.x - hi.x), tf32_rna(x.y - hi.y),
+                        tf32_rna(x.z - hi.z), tf32_rna(x.w - hi.w));
+        const int byte = 16 * i, rg = byte / P::sbo_rows;
+        const int rem = byte - rg * P::sbo_rows;
+        const int kv = rg * 8 + ((rem & 127) >> 4), d = (rem >> 7) * 4;
+        const int p = kv & 7, kvp = (kv & ~7) + (p >> 1) + 4 * (p & 1);
+        const int vo = cm_off(d, kvp, 4, P::sbo_vt);
+        const float4 y = reinterpret_cast<const float4*>(vs)[i];
+        const float yv[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = Vs + (kk + u) * ld;
-        const float4 v0 = own0 ? load4(vrow + 4 * tx) : make_float4(0, 0, 0, 0);
-        const float4 v1 =
-            own1 ? load4(vrow + 4 * (tx + 16)) : make_float4(0, 0, 0, 0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pu = u == 0 ? pa[i].x
-                         : u == 1 ? pa[i].y
-                         : u == 2 ? pa[i].z
-                                  : pa[i].w;
-          acc[i][0].x = fmaf(pu, v0.x, acc[i][0].x);
-          acc[i][0].y = fmaf(pu, v0.y, acc[i][0].y);
-          acc[i][0].z = fmaf(pu, v0.z, acc[i][0].z);
-          acc[i][0].w = fmaf(pu, v0.w, acc[i][0].w);
-          acc[i][1].x = fmaf(pu, v1.x, acc[i][1].x);
-          acc[i][1].y = fmaf(pu, v1.y, acc[i][1].y);
-          acc[i][1].z = fmaf(pu, v1.z, acc[i][1].z);
-          acc[i][1].w = fmaf(pu, v1.w, acc[i][1].w);
+        for (int e = 0; e < 4; ++e) {
+          const float yh = tf32_rna(yv[e]);
+          *reinterpret_cast<float*>(vt_hi + vo + 16 * e) = yh;
+          *reinterpret_cast<float*>(vt_lo + vo + 16 * e) = tf32_rna(yv[e] - yh);
         }
       }
+      fence_async_smem();
+      __syncthreads();
+    }
+
+    // s = (q * scale) k^T: 64 x BK in the accumulator's layout
+    float sc[BK / 2];
+    const unsigned char* qh = q_hi + wg * P::q_bytes;
+    wgmma_fence();
+    if constexpr (P::kSplit) {
+      const unsigned char* ql = q_lo + wg * P::q_bytes;
+      const unsigned char* a_op[3] = {ql, qh, qh};
+      const unsigned char* b_op[3] = {ks, k_lo, ks};
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int kk = 0; kk < HDP / 8; ++kk)
+          mma_ss<BK>(sc,
+                     smem_desc(a_op[term] + kk * 256, 128, P::sbo_rows),
+                     smem_desc(b_op[term] + kk * 256, 128, P::sbo_rows),
+                     term + kk > 0, T());
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk)
+        mma_ss<BK>(sc, smem_desc(qh + kk * 256, 128, P::sbo_rows),
+                   smem_desc(ks + kk * 256, 128, P::sbo_rows), kk > 0, T());
+    }
+    wgmma_commit_wait();
+
+    // mask, online softmax; thread holds columns 8c + 2t, 8c + 2t + 1 of
+    // rows r0 (sc[4c], sc[4c + 1]) and r0 + 8 (sc[4c + 2], sc[4c + 3])
+    // (the mask is applied only to tiles it cuts: the last, ragged one,
+    // the causal diagonal and the window's edge)
+    const int k0 = j * BK;
+    const bool cut = k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
+                     (window >= 0 && k0 <= q0 + kBQ - 1 - window);
+    uint64_t keep = ~0ull;
+    float mx0 = kNegInf, mx1 = kNegInf;
+    if (cut) {
+      keep = 0;
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int kpos = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        const int qpos = (e & 2) ? qpos1 : qpos0;
+        const bool kp = kpos < Sk && (!causal || kpos <= qpos) &&
+                        (window < 0 || kpos > qpos - window);
+        keep |= (uint64_t)kp << e;
+        sc[e] = kp ? sc[e] : kNegInf;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      if (e & 2) mx1 = fmaxf(mx1, sc[e]);
+      else mx0 = fmaxf(mx0, sc[e]);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const float p = ((keep >> e) & 1)
+          ? exp_of<P::kSplit>(sc[e] - ((e & 2) ? mn1 : mn0)) : 0.f;
+      sc[e] = p;
+      if (e & 2) rs1 += p;
+      else rs0 += p;
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+    }
+    const float corr0 = exp_of<P::kSplit>(m0 - mn0);
+    const float corr1 = exp_of<P::kSplit>(m1 - mn1);
+    l0 = l0 * corr0 + rs0;
+    l1 = l1 * corr1 + rs1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int e = 0; e < HDP / 2; ++e) acc[e] *= (e & 2) ? corr1 : corr0;
+
+    // acc += p v
+    wgmma_fence();
+    if constexpr (P::kSplit) {
+      // this tile's p v into a fresh accumulator, added to acc below with
+      // f32 adds: the tensor cores' own sums over all kv tiles lose more
+      float tile[HDP / 2];
+#pragma unroll
+      for (int e = 0; e < HDP / 2; ++e) tile[e] = 0.f;
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int c = 0; c < BK / 8; ++c) {
+          // p's hi or lo in the A fragment's order (t, t + 4 <- 2t, 2t + 1)
+          const float x[4] = {sc[4 * c], sc[4 * c + 2], sc[4 * c + 1],
+                              sc[4 * c + 3]};
+          uint32_t a[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float h = tf32_rna(x[r]);
+            a[r] = __float_as_uint(term == 0 ? tf32_rna(x[r] - h) : h);
+          }
+          mma_rs<HDP>(tile, a,
+                      smem_desc((term == 1 ? vt_lo : vt_hi) + c * 256, 128,
+                                P::sbo_vt),
+                      T());
+        }
+      wgmma_commit_wait();
+#pragma unroll
+      for (int e = 0; e < HDP / 2; ++e) acc[e] += tile[e];
+    } else {
+      // v as copied (kv rows x HDP): MN-major, its 8-row groups of kv
+      // sbo_rows apart and its 16-byte column chunks 128 apart
+#pragma unroll
+      for (int c = 0; c < BK / 16; ++c) {
+        const float* pc = sc + 8 * c;
+        const uint32_t a[4] = {pack_bf16(pc[0], pc[1]), pack_bf16(pc[2], pc[3]),
+                               pack_bf16(pc[4], pc[5]), pack_bf16(pc[6], pc[7])};
+        mma_rs<HDP>(acc, a,
+                    smem_desc(vs + c * 2 * P::sbo_rows, P::sbo_rows, 128),
+                    T());
+      }
+      wgmma_commit_wait();
     }
   }
 
   // o = acc / max(l, 1e-30) in q's type
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  T* og = o + ((int64_t)b * Sq * H + h) * hd;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((int64_t)b * Sq + row) * H + h) * hd;
-    if (own0)
-      store4(orow + 4 * tx,
-             make_float4(acc[i][0].x / den, acc[i][0].y / den,
-                         acc[i][0].z / den, acc[i][0].w / den));
-    if (own1)
-      store4(orow + 4 * (tx + 16),
-             make_float4(acc[i][1].x / den, acc[i][1].y / den,
-                         acc[i][1].z / den, acc[i][1].w / den));
+  for (int c = 0; c < HDP / 8; ++c) {
+    const int col = 8 * c + 2 * t;
+    if (col >= hd) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qpos = half ? qpos1 : qpos0;
+      if (qpos >= Sq) continue;
+      const float den = half ? den1 : den0;
+      const float x0 = acc[4 * c + 2 * half] / den;
+      const float x1 = acc[4 * c + 2 * half + 1] / den;
+      T* dst = og + (int64_t)qpos * q_stride + col;
+      if constexpr (P::kSplit) {
+        *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+      }
+    }
   }
 }
 
-template <typename T>
+template <typename T, int HDP, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KH, int hd, int causal, int window,
            float scale, cudaStream_t s) {
-  const int ld = hd + 4;
-  const size_t smem = ((size_t)(kBQ + 2 * kBK) * ld + kBQ * kPLd) *
-                      sizeof(float);
+  using P = Plan<T, HDP, BK>;
+  const int G = H / KH;
+  int W = 1;  // q heads per block: the most that divides G and fits
+  for (int w = kMaxHeadsPerBlock; w > 1; --w)
+    if (G % w == 0 && P::smem(w) <= (size_t)kSmemMax) {
+      W = w;
+      break;
+    }
+  const size_t smem = P::smem(W);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_attention_kernel<T, HDP, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T><<<grid, kThreads, smem, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KH, hd, causal,
-      window, scale);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, KH * (G / W), B);
+  flash_attention_kernel<T, HDP, BK><<<grid, 128 * W, smem, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KH, hd,
+      causal, window, scale, W);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int BK32, int BK64, int BK128>
+int dispatch(const void* q, const void* k, const void* v, void* o, int B,
+             int Sq, int Sk, int H, int KH, int hd, int causal, int window,
+             float scale, cudaStream_t s) {
+  if (hd <= 32)
+    return launch<T, 32, BK32>(q, k, v, o, B, Sq, Sk, H, KH, hd, causal,
+                               window, scale, s);
+  if (hd <= 64)
+    return launch<T, 64, BK64>(q, k, v, o, B, Sq, Sk, H, KH, hd, causal,
+                               window, scale, s);
+  return launch<T, 128, BK128>(q, k, v, o, B, Sq, Sk, H, KH, hd, causal,
+                               window, scale, s);
 }
 
 }  // namespace
 
 // dtype: 0 = f32, 2 = bf16 (kernels/build.py DTYPE_CODES); window < 0 means
-// no window.  The wrapper checks shapes, types, alignment and
-// 8 <= hd <= 128 with hd % 8 == 0.
+// no window.  The wrapper checks shapes, types, 16-byte alignment of k and
+// v, and 8 <= hd <= 128 with hd % 8 == 0.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int dtype, int B, int Sq, int Sk,
                                int H, int KH, int hd, int causal, int window,
@@ -274,11 +769,14 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (hd < 8 || hd > kMaxHd || hd % 8 != 0 || KH < 1 || H % KH != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  // kv tile rows BK: f32 64, but 32 at hd > 64 (the split tiles' shared
+  // memory); bf16 128, but 64 at hd > 64 (the registers of s and o)
   if (dtype == 0)
-    return launch<float>(q, k, v, o, B, Sq, Sk, H, KH, hd, causal, window,
-                         scale, s);
+    return dispatch<float, 64, 64, 32>(q, k, v, o, B, Sq, Sk, H, KH, hd,
+                                       causal, window, scale, s);
   if (dtype == 2)
-    return launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KH, hd, causal,
-                                 window, scale, s);
+    return dispatch<__nv_bfloat16, 128, 128, 64>(q, k, v, o, B, Sq, Sk, H,
+                                                 KH, hd, causal, window, scale,
+                                                 s);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,8 +22,9 @@ from repro_torch.kernels.fedfa_quantile import ref
 
 _BINS = 256
 _LEVELS = 4
-# the kernel keeps 2 x S x 256 (int32 count + f64 sum) planes in one
-# block's shared memory: 6 KiB per segment of the 227 KB a block can use
+# the kernel keeps 2 x S x 256 planes (an int32 count and a sum in two
+# 32-bit words) in one block's shared memory, 6 KiB per segment of the
+# 227 KB a block can use (and a copy per warp up to S = 4)
 MAX_SEGMENTS = 37
 
 HIST_LEVEL = CudaKernel(
@@ -92,6 +93,22 @@ def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
     per segment, so t and ss are in dequantized units.  int8 / bf16 rows
     without scales are upcast to f32.
     """
+    t, ss, _ = _search(x, seg_id, seg_len, q_seg, scales, hist_level)
+    return t, ss
+
+
+def level_prefixes(x: torch.Tensor, seg_id: torch.Tensor,
+                   seg_len: torch.Tensor, q_seg: torch.Tensor,
+                   scales: Optional[torch.Tensor] = None):
+    """[(shift, hi)] of each level of ``segmented_trimmed_stats``'s search
+    on these inputs, found with the plain ``ref.hist_level_ref``: the
+    inputs at which the search calls ``hist_level``."""
+    return _search(x, seg_id, seg_len, q_seg, scales, ref.hist_level_ref)[2]
+
+
+def _search(x, seg_id, seg_len, q_seg, scales, hist):
+    """The level loop, each level's planes from ``hist``; returns t, ss and
+    the [(shift, hi)] it histogrammed."""
     x, _ = kernel_rows(x, scales)     # once, not at every level
     m = x.shape[0]
     S = seg_len.shape[0]
@@ -99,10 +116,12 @@ def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
     rank = torch.stack([r0, r1], dim=1)                        # (m, 2, S)
     lo = torch.zeros((m, 2, S), dtype=torch.int64, device=x.device)
     sqb = torch.zeros((m, 2, S), dtype=torch.float32, device=x.device)
+    levels = []
     for j in range(_LEVELS):
         shift = 24 - 8 * j
         hi = (lo >> min(shift + 8, 31)).to(torch.int32)
-        cnt, sq = hist_level(x, seg_id, hi, shift, scales)
+        levels.append((shift, hi))
+        cnt, sq = hist(x, seg_id, hi, shift, scales)
         cum = torch.cumsum(cnt, dim=-1)
         # smallest bin whose cumulative count exceeds the rank
         bstar = torch.sum(cum <= rank[..., None], dim=-1)
@@ -120,7 +139,7 @@ def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
     v0, v1 = v[:, 0], v[:, 1]
     t = ref.interpolate(v0, v1, frac)
     # no data value lies strictly between adjacent order statistics
-    return t, torch.where(t < v1, sqb[:, 0], sqb[:, 1])
+    return t, torch.where(t < v1, sqb[:, 0], sqb[:, 1]), levels
 
 
 def row_trimmed_stats_multilevel(rows: torch.Tensor, q: torch.Tensor,

@@ -24,8 +24,8 @@ FLASH_ATTENTION = CudaKernel(
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_void_p])
 
-# the kernel's head widths: multiples of 8 (16-byte rows of f32 or 8-byte
-# rows of bf16, read four at a time) up to its shared-memory tiles' 128
+# the kernel's head widths: multiples of 8 (rows of whole 16-byte chunks,
+# copied by cp.async 16 bytes at a time) up to its shared-memory tiles' 128
 _MAX_HD = 128
 
 
@@ -61,10 +61,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd > _MAX_HD or hd % 8:
         raise ValueError(f"the flash-attention kernel takes hd <= {_MAX_HD}, "
                          f"a multiple of 8; got {hd}")
-    align = 4 * q.element_size()
-    if any(t.data_ptr() % align for t in (q, k, v)):
-        raise ValueError(f"attention's kernel reads q, k and v {align} bytes "
-                         f"at a time; their storage is not so aligned")
+    # the kernel reads q, k and v 16 bytes at a time: a view that starts off
+    # that boundary is copied to storage that does not
+    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     out = torch.empty_like(q)
     FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), DTYPE_CODES[q.dtype], B, Sq, Sk,

@@ -12,7 +12,12 @@ value product, so an f32 probability an ulp apart can move a rounded one
 by a step.  Gradients at rtol 1e-4 / atol 1e-5; the long-prompt prefill's
 logits at the serving tests' tolerance, its value caches at theirs, and
 its key caches at theirs plus what RoPE's frequencies allow (see
-``test_prefill_long_prompt_matches_reference``)."""
+``test_prefill_long_prompt_matches_reference``).  The CUDA kernel's f32
+route (three TF32 products for each f32 one) is emulated on the f32 bits
+and held to the f32 tolerance against the Pallas kernel in interpret mode;
+one TF32 product is shown to miss it."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -129,6 +134,56 @@ def test_attention_checks_inputs():
     # a strided view is legitimate: the wrapper makes it contiguous
     qs = torch.zeros((1, 4, 8, 8)).transpose(1, 2)
     assert ops.attention(qs, k, v).shape == (1, 8, 4, 8)
+
+
+# the long prompt of the serving checks, at two heads
+LONG = (1, 2100, 2100, 2, 2, 64)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """``cvt.rna.tf32.f32``: 10 mantissa bits, ties away from zero (an even
+    tie-break would round 1 + 2^-11 down to 1)."""
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11,
+                      1 + 2 ** -11 - 2 ** -23, 1 + 2 ** -10, 3.0])
+    assert ref.tf32_round(x).tolist() == [
+        1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 ** -9, 1.0, 1 + 2 ** -10, 3.0]
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas(shape, causal, window, seed):
+    """The JAX Pallas kernel in interpret mode on ``_qkv``'s inputs: at the
+    sweep's bq = bk = 64, through the padding wrapper (bq = bk = 512) where
+    the lengths do not tile."""
+    jx, _ = _both(_qkv(*shape, seed=seed), "f32")
+    if shape[1] % 64 == 0 and shape[2] % 64 == 0:
+        out = flash_attention(*jx, causal=causal, window=window, bq=64,
+                              bk=64, interpret=True)
+    else:
+        out = jfa_ops.attention(*jx, causal=causal, window=window, bq=512,
+                                bk=512, use_kernel=True, interpret=True)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("shape,causal,window", SWEEP + [(LONG, True, None)])
+def test_split_tf32_ref_matches_interpret_kernel(shape, causal, window):
+    """The CUDA kernel's f32 route takes each product as three TF32
+    products (lo·hi′ + hi·lo′ + hi·hi′); its emulation on the f32 bits
+    holds the f32 tolerance against the Pallas kernel in interpret mode."""
+    _, tx = _both(_qkv(*shape, seed=3), "f32")
+    got = ref.attention_split_tf32_ref(*tx, causal=causal,
+                                       window=window).numpy()
+    np.testing.assert_allclose(got, _pallas(shape, causal, window, 3),
+                               **F32_TOL)
+
+
+def test_single_tf32_product_misses_f32_tolerance():
+    """hi·hi′ alone, one TF32 product, misses 2e-5 at the long shape: the
+    check above can fail, and the kernel needs the other two products."""
+    _, tx = _both(_qkv(*LONG, seed=3), "f32")
+    got = ref.attention_split_tf32_ref(*tx, causal=True, terms=1).numpy()
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(got, _pallas(LONG, True, None, 3),
+                                   **F32_TOL)
 
 
 # tests/test_perf_features.py's window block skip (S, window, bq, bk) and

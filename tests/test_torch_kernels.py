@@ -237,3 +237,69 @@ def test_wrappers_reject_other_devices():
                                              device="meta"),
                               torch.empty((2, 2, 1), dtype=torch.int32,
                                           device="meta"), 24)
+
+
+def _plane_case(dtype, S, seed=0):
+    """Rows (3, 1500) of ``dtype`` with S segments and inert columns, and
+    their quantile levels: f32 rows; int8 rows quantized per (row,
+    segment) with their scales; bf16 rows with unit scales.  The values
+    lie on a grid of 1/8 (exact in bf16), so neighbouring order
+    statistics often tie and the floor and ceil prefixes agree at every
+    level, as they do on the main path's long rows."""
+    rng = np.random.default_rng(seed)
+    m, C = 3, 1500
+    x = (np.round(rng.normal(size=(m, C)) * 8) / 8).astype(np.float32)
+    seg = (np.arange(C) % (S + 1) - 1).astype(np.int32)     # every S+1-th inert
+    seg_len = np.bincount(seg[seg >= 0], minlength=S).astype(np.int64)
+    q = torch.from_numpy(rng.uniform(0.9, 1.0, (m, S)).astype(np.float32))
+    x = torch.from_numpy(x)
+    sc = None
+    if dtype == "int8":
+        segs = torch.from_numpy(seg).clamp(min=0).long()
+        amax = torch.zeros((m, S)).scatter_reduce(
+            1, segs.expand(m, C), x.abs(), "amax")
+        sc = amax / 127.0
+        x = torch.round(x / sc[:, segs]).clamp(-127, 127).to(torch.int8)
+    elif dtype == "bf16":
+        x, sc = x.to(torch.bfloat16), torch.ones((m, S))
+    return x, torch.from_numpy(seg), torch.from_numpy(seg_len), q, sc
+
+
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("dtype", ["f32", "int8", "bf16"])
+def test_hist_level_planes_equal_where_prefixes_agree(dtype, S):
+    """What the CUDA hist_level relies on to build one plane where a row's
+    floor and ceil prefixes agree and copy it into the other: the plain
+    version's two planes are then equal, counts and Σx².  At every level of
+    the search, with the prefixes the plain level loop finds."""
+    x, seg, seg_len, q, sc = _plane_case(dtype, S)
+    levels = multilevel.level_prefixes(x, seg, seg_len, q, sc)
+    assert [shift for shift, _ in levels] == [24, 16, 8, 0]
+    agree = []
+    for shift, hi in levels:
+        cnt, sq = multilevel.hist_level(x, seg, hi, shift, sc)
+        same = hi[:, 0] == hi[:, 1]                          # (m, S)
+        agree.append(int(same.sum()))
+        assert torch.equal(cnt[:, 0][same], cnt[:, 1][same])
+        assert torch.equal(sq[:, 0][same], sq[:, 1][same])
+        assert int(cnt[:, 0][same].sum()) > 0 or not same.any()
+    # the top level's prefixes are all 0; every level has agreeing ones
+    assert agree[0] == 3 * S and min(agree) > 0
+
+
+def test_hist_level_planes_differ_where_prefixes_differ():
+    """The same planes with the ceil path's prefix moved to the bin below
+    it at the level above: the planes differ, and each is the one its own
+    prefix gives."""
+    x, seg, seg_len, q, sc = _plane_case("f32", 1)
+    shift, hi = multilevel.level_prefixes(x, seg, seg_len, q, sc)[1]
+    moved = hi.clone()
+    moved[:, 1] -= 1
+    cnt, sq = multilevel.hist_level(x, seg, moved, shift, sc)
+    assert not torch.equal(cnt[:, 0], cnt[:, 1])
+    assert int(cnt[:, 1].sum()) > 0
+    for p, prefix in ((0, hi[:, 0]), (1, moved[:, 1])):
+        alone = torch.stack([prefix, prefix], dim=1)
+        c1, s1 = multilevel.hist_level(x, seg, alone, shift, sc)
+        assert torch.equal(cnt[:, p], c1[:, 0])
+        assert torch.equal(sq[:, p], s1[:, 0])
