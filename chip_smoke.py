@@ -51,14 +51,20 @@
 9. Holds each kernel against its plain PyTorch version at the main path's
    shapes (weighted sums within 1e-5 of the summed magnitudes; thresholds
    bit-equal; trimmed sums of squares at rtol 1e-5; the SSD's y and state
-   within atol 1e-4 + rtol 1e-4 and its L within 1e-5; attention within
+   within atol 1e-4 + rtol 1e-4 and its L bit-equal; attention within
    2e-5 at f32 and 5e-2 at bf16, the JAX package's kernel tolerances),
-   f32 and the quantized or bf16 variants, and ``trimmed_sumsq`` also
-   against ``quantile_fused``'s Σx² at that kernel's thresholds;
+   f32 and the quantized or bf16 variants, ``quantile_fused`` also on the
+   CPU tests' adversarial rows (ties, all-zero rows, q at 0 and 1, L = 1,
+   2, 4099 and the longest single-pass row, 2^18) and on the rows each
+   main path's first round passed it (captured in that run; timed there
+   at every cluster size, with the rows that overflow CTA 0 counted),
+   each call twice with the same bits, and ``trimmed_sumsq``
+   also against ``quantile_fused``'s Σx² at that kernel's thresholds;
    ``hist_level`` at every multilevel row shape of the main path and each
    of the four levels, with the prefixes the plain level loop finds
    (counts equal, Σx² at rtol 1e-5; at the second level also with the two
-   planes' prefixes differing), and its per-round total;
+   planes' prefixes differing), and its per-round total (the launches
+   beside each shape are the wrappers' counts by shape on the main path);
    ``flash_attention`` also against the 3xTF32 emulation of its f32 route
    (within 1e-5), at the JAX package's sweep of shapes and masks and on a
    ragged shape, and refusing inputs that need a gradient; times the
@@ -219,20 +225,39 @@ def small_quantized_check(update_dtype: str) -> None:
 
 def main_path(kernels, update_dtype: str, path_kernels) -> dict:
     """The CLI defaults at full size for 2 rounds at ``update_dtype``, with
-    every launch count reset just before; returns the history."""
+    every launch count reset just before; returns the history, with each
+    kernel's launches (``launches``, and by shape where its wrapper names
+    one: ``by_shape``) and copies of the arguments of the first round's
+    ``quantile_fused`` calls (``quantile_calls``)."""
+    from repro_torch.kernels.fedfa_quantile import ops
     from repro_torch.launch import train
+    _, single, _ = main_path_shapes(8)
+    calls, wrapper = [], ops.quantile_fused
+
+    def recording(rows, q, scale=None):
+        if len(calls) < sum(single.values()):
+            calls.append(tuple(None if a is None else a.clone()
+                               for a in (rows, q, scale)))
+        return wrapper(rows, q, scale)
+
     for k in kernels:
-        k.launches = 0
+        k.reset()
     torch.cuda.reset_peak_memory_stats()
+    ops.quantile_fused = recording
     t0 = time.perf_counter()
-    hist = train.run_fl("smollm-135m", 2, 16, strategy="fedfa", batch=8,
-                        seq_len=64, participation=0.5, local_steps=2, lr=0.05,
-                        task="cls", eval_every=5, driver="resident",
-                        update_dtype=update_dtype, full_size=True,
-                        device="cuda")
-    torch.cuda.synchronize()
+    try:
+        hist = train.run_fl("smollm-135m", 2, 16, strategy="fedfa", batch=8,
+                            seq_len=64, participation=0.5, local_steps=2,
+                            lr=0.05, task="cls", eval_every=5,
+                            driver="resident", update_dtype=update_dtype,
+                            full_size=True, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        ops.quantile_fused = wrapper
     hist["seconds"] = time.perf_counter() - t0
     hist["launches"] = {k.symbol: k.launches for k in kernels}
+    hist["by_shape"] = {k.symbol: dict(k.by_shape) for k in kernels}
+    hist["quantile_calls"] = calls
     hist["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     check(len(hist["round_loss"]) == 2
           and bool(np.all(np.isfinite(hist["round_loss"]))),
@@ -261,7 +286,7 @@ def trimmed_norm_path(kernels, g: torch.Tensor) -> dict:
     t, ss = ops.row_trimmed_stats(g[None], torch.full((1,), 0.95,
                                                       device="cuda"))
     for k in kernels:
-        k.launches = 0
+        k.reset()
     norm = agg_ops.trimmed_norm(g, t[0])
     torch.cuda.synchronize()
     launches = {k.symbol: k.launches for k in kernels}
@@ -285,8 +310,8 @@ def model_index():
 
 def main_path_shapes(m: int):
     """(N, single-pass row shapes, multilevel row shapes) of the main path:
-    each leaf's rows (m·lead, rest), split by the JAX dispatch rule; the
-    multilevel shapes as {shape: number of leaves}."""
+    each leaf's rows (m·lead, rest), split by the JAX dispatch rule; each as
+    {shape: number of leaves}, smallest first."""
     from repro_torch.kernels.fedfa_quantile.ops import _LANES, _SINGLE_PASS_ELEMS
     from repro_torch.launch import train
     from repro_torch.models.transformer import _is_shape, param_shapes
@@ -296,34 +321,64 @@ def main_path_shapes(m: int):
     n = sum(int(np.prod(s)) for _, s in leaves)
     rows = [(m * s[0], int(np.prod(s[1:]))) if path[0] == "stages"
             else (m, int(np.prod(s))) for path, s in leaves]
-    single = sorted((r for r in set(rows)
-                     if -(-r[1] // _LANES) * _LANES <= _SINGLE_PASS_ELEMS),
-                    key=lambda r: r[0] * r[1])
-    multi = {r: rows.count(r) for r in sorted(set(rows) - set(single),
-                                              key=lambda r: r[0] * r[1])}
+    shapes = sorted(set(rows), key=lambda r: r[0] * r[1])
+    single = {r: rows.count(r) for r in shapes
+              if -(-r[1] // _LANES) * _LANES <= _SINGLE_PASS_ELEMS}
+    multi = {r: rows.count(r) for r in shapes if r not in single}
     return n, single, multi
 
 
-def quantized_rows(dtype: str, R: int, L: int, gen):
+def quantized_rows(dtype: str, R: int, L: int, gen, x=None):
     """(rows, per-row scales) as the admission stores them: int8 with
-    scale max|x|/127, or bf16 with scale 1, of normal rows."""
-    x = torch.randn((R, L), generator=gen, device="cuda")
+    scale max|x|/127, or bf16 with scale 1, of normal rows (or of ``x``)."""
+    if x is None:
+        x = torch.randn((R, L), generator=gen, device="cuda")
     if dtype == "bf16":
         return x.to(torch.bfloat16), torch.ones(R, device="cuda")
     s = x.abs().amax(1) / 127.0
+    s = torch.where(s > 0, s, torch.ones_like(s))   # all-zero rows
     return torch.round(x / s[:, None]).clamp(-127, 127).to(torch.int8), s
+
+
+# tests/test_torch_kernels.py's adversarial rows, and the shortest and the
+# longest single-pass rows: (R, L, kind, levels)
+QUANTILE_ADVERSARIAL = [
+    (3, 2048, "ties", "path"), (4, 4099, "ties", "ends"),
+    (2, 1500, "zeros", "path"), (3, 1 << 18, "zeros", "ends"),
+    (3, 1537, "normal", "ends"), (2, 1, "ties", "ends"),
+    (2, 2, "normal", "ends"), (4, 1, "normal", "path"),
+    (3, 1 << 18, "normal", "path"), (3, 1 << 18, "ties", "ends")]
+
+
+def quantile_rows(dtype: str, kind: str, R: int, L: int, gen):
+    """(rows, scales) of ``kind``: normal; ties (few distinct magnitudes,
+    both signs); zeros (every magnitude 0) — f32, or quantized as the
+    admission stores them."""
+    if kind == "normal":
+        x = torch.randn((R, L), generator=gen, device="cuda")
+    elif kind == "ties":
+        x = torch.randint(-4, 5, (R, L), generator=gen,
+                          device="cuda").float() * 0.25
+    else:
+        x = torch.zeros((R, L), device="cuda")
+    if dtype == "f32":
+        return x, None
+    return quantized_rows(dtype, R, L, gen, x)
 
 
 BYTES = {"f32": 4, "int8": 1, "bf16": 2}
 
 
-def kernel_checks(launches: dict) -> list:
+def kernel_checks(launches: dict, shapes: dict, quantile_calls: dict) -> list:
     """Each kernel against its plain version at the main path's shapes;
-    ``launches`` holds each path's counts, by admission dtype."""
+    ``launches`` holds each path's counts and ``shapes`` its counts by
+    shape, by admission dtype; ``quantile_calls`` the arguments of the
+    first round's ``quantile_fused`` calls on each path."""
     from repro_torch.core import flat
     from repro_torch.kernels.fedfa_agg import ops as agg_ops
     from repro_torch.kernels.fedfa_agg import ref as agg_ref
     from repro_torch.kernels.fedfa_quantile import ops, ref
+    from repro_torch.launch import ablate
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
@@ -405,47 +460,111 @@ def kernel_checks(launches: dict) -> list:
         del xq, got, want, mag, err
 
     # quantile_fused: every single-pass row shape of the main path (the
-    # norms, wk/wv) and an odd length, f32 and quantized; timed at the
-    # largest.  The f32 rows of the largest shape feed trimmed_sumsq below.
+    # norms, wk/wv) and an odd length, f32 and quantized, then the CPU
+    # tests' adversarial rows, each call twice with the same bits; then the
+    # rows the main path's first round passed it, timed call by call.  The
+    # f32 rows of the largest shape feed trimmed_sumsq below.
+    def quantile_check(rows, q, s, what):
+        t, ss = ops.quantile_fused(rows, q, s)
+        t2, ss2 = ops.quantile_fused(rows, q, s)
+        pt, pss = ref.row_trimmed_stats_ref(ref.dequantize_rows(rows, s), q)
+        check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
+              f"{what}: thresholds differ")
+        torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0,
+                                   msg=f"{what}: sums differ")
+        check(torch.equal(t.view(torch.int32), t2.view(torch.int32))
+              and torch.equal(ss.view(torch.int32), ss2.view(torch.int32)),
+              f"{what}: two calls differ")
+        return float((ss - pss).abs().max())
+
     for dtype in ("f32", "int8", "bf16"):
         qerr = 0.0
-        for R, L in single + [(16, 4099)]:
+        cases = [(R, L, "normal", "path")
+                 for R, L in list(single) + [(16, 4099)]]
+        cases += QUANTILE_ADVERSARIAL
+        for R, L, kind, levels in cases:
+            rows, s = quantile_rows(dtype, kind, R, L, gen)
+            if levels == "path":
+                q = 1.0 - 0.05 * torch.rand(R, generator=gen, device="cuda")
+            else:   # the ends: q = 0 and 1 (and one between)
+                q = torch.tensor(([0.0, 1.0, 0.5] * R)[:R], device="cuda")
+            qerr = max(qerr, quantile_check(
+                rows, q, s, f"quantile_fused {dtype} {kind} rows {(R, L)}, "
+                            f"q {levels}"))
+        # each single-pass shape: its launches on the main path (counted
+        # by shape), times on the first of its calls there and on normal
+        # rows; the round row adds the times of the first round's calls
+        calls = quantile_calls[dtype]
+        check(sorted(tuple(c[0].shape) for c in calls)
+              == sorted(sh for sh, n in single.items() for _ in range(n)),
+              f"quantile_fused {dtype}: the first round's calls were at "
+              f"{[tuple(c[0].shape) for c in calls]}, expected {single}")
+        timed = []
+        for rows, q, s in calls:
+            what = f"quantile_fused {dtype} main-path rows {tuple(rows.shape)}"
+            qerr = max(qerr, quantile_check(rows, q, s, what))
+            R, L = rows.shape
+            b, by = bound(R * L * rows.element_size()
+                          + (3 + (s is not None)) * R * 4, R * L)
+            cand = ablate.quantile_candidates(rows, q, s)
+            timed.append({
+                "shape": (R, L), "bound_ms": b, "bound_by": by,
+                "ms": time_ms(lambda: ops.quantile_fused(rows, q, s), 10),
+                "plain_ms": time_ms(lambda: ref.row_trimmed_stats_ref(
+                    ref.dequantize_rows(rows, s), q), 5),
+                "ms_by_cluster": ablate.quantile_cluster_times(rows, q, s),
+                "over": 0 if cand is None else int((cand[0] > cand[1]).sum()),
+                "most": None if cand is None else int(cand[0].max()),
+                "holds": None if cand is None else cand[1]})
+        by_shape = shapes[dtype]["quantile_fused"]
+        check(sum(by_shape.values()) == launches[dtype]["quantile_fused"]
+              and all(by_shape.get(sh, 0) == 2 * leaves
+                      for sh, leaves in single.items()),
+              f"quantile_fused {dtype}: launches by shape {by_shape} in 2 "
+              f"rounds, expected twice {single}")
+        for R, L in single:
+            rows, s = quantile_rows(dtype, "normal", R, L, gen)
             if dtype == "f32":
-                rows, s = randn(R, L), None
-            else:
-                rows, s = quantized_rows(dtype, R, L, gen)
+                f32_rows = rows     # the largest shape's, last
             q = 1.0 - 0.05 * torch.rand(R, generator=gen, device="cuda")
-            t, ss = ops.quantile_fused(rows, q, s)
-            pt, pss = ref.row_trimmed_stats_ref(ref.dequantize_rows(rows, s),
-                                                q)
-            check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
-                  f"quantile_fused {dtype} thresholds differ at {(R, L)}")
-            torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0)
-            qerr = max(qerr, float((ss - pss).abs().max()))
-        R, L = single[-1]
-        if dtype == "f32":
-            rows, s = randn(R, L), None
-            f32_rows = rows
-        else:
-            rows, s = quantized_rows(dtype, R, L, gen)
-        q = 1.0 - 0.05 * torch.rand(R, generator=gen, device="cuda")
-        b, by = bound(R * L * BYTES[dtype] + (3 + (s is not None)) * R * 4,
-                      R * L)
+            mine = [c for c in timed if c["shape"] == (R, L)]
+            first = mine[0]
+            out.append({
+                "name": "quantile_fused", "dtype": dtype, "shape": [R, L],
+                "route": "cuda",
+                "source": "src/repro_torch/csrc/quantile_fused.cu",
+                "replaces": "src/repro/kernels/fedfa_quantile/kernel.py:85",
+                "launches": by_shape[R, L], "max_abs_err": qerr,
+                **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by")},
+                "library_ms": None,
+                "normal_rows_ms": time_ms(
+                    lambda: ops.quantile_fused(rows, q, s), 10),
+                "ms_by_cluster": first["ms_by_cluster"],
+                # the round's rows of this shape, those whose candidates
+                # overflow CTA 0, and the most candidates of a row against
+                # what CTA 0 holds
+                "rows_in_round": R * len(mine),
+                "rows_all_levels_over_cluster": sum(c["over"] for c in mine),
+                "candidates_max": None if first["most"] is None else
+                [max(c["most"] for c in mine), first["holds"]]})
         out.append({
-            "name": "quantile_fused", "dtype": dtype, "route": "cuda",
+            "name": "quantile_fused", "dtype": dtype, "shape": "round",
+            "route": "cuda",
             "source": "src/repro_torch/csrc/quantile_fused.cu",
             "replaces": "src/repro/kernels/fedfa_quantile/kernel.py:85",
-            "launches": launches[dtype]["quantile_fused"], "max_abs_err": qerr,
-            "ms": time_ms(lambda: ops.quantile_fused(rows, q, s), 10),
-            "plain_ms": time_ms(lambda: ref.row_trimmed_stats_ref(
-                ref.dequantize_rows(rows, s), q), 5),
-            "bound_ms": b, "bound_by": by, "library_ms": None})
-        del rows
+            "launches": launches[dtype]["quantile_fused"], "rounds": 2,
+            "max_abs_err": qerr,
+            **{k: sum(c[k] for c in timed)
+               for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": "bytes", "library_ms": None,
+            "calls_timed": len(timed)})
+        del rows, timed
 
     # trimmed_sumsq: the (N,) f32 vector against its plain version, and
     # each row of the largest single-pass shape at the threshold
     # quantile_fused returned for it against that kernel's Σx²
-    R, L = single[-1]
+    R, L = list(single)[-1]
     q = 1.0 - 0.05 * torch.rand(R, generator=gen, device="cuda")
     t, ss = ops.quantile_fused(f32_rows, q)
     for r in range(R):
@@ -483,7 +602,7 @@ def kernel_checks(launches: dict) -> list:
     return out
 
 
-def hist_checks(launches: dict) -> list:
+def hist_checks(launches: dict, shapes: dict) -> list:
     """``hist_level`` at every multilevel row shape of the main path (wq/wo,
     the FFN, the embedding; S = 1), f32 and quantized, at each of the four
     levels with the prefixes the plain level loop finds for those rows:
@@ -491,8 +610,9 @@ def hist_checks(launches: dict) -> list:
     second level also with the ceil path's prefix moved to the next bin, so
     that the two planes differ; then the whole multilevel quantile against
     the sorting plain version, thresholds bit-equal.  Each (shape, level) is
-    timed, and one row per dtype adds them up over the round's multilevel
-    leaves (launches × time against launches × bound)."""
+    timed beside its launches on the main path (``shapes``, counted by
+    shape), and one row per dtype adds them up over a round (launches × time
+    against launches × bound, over the path's 2 rounds)."""
     from repro_torch.kernels.fedfa_quantile import multilevel, ref
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -500,7 +620,7 @@ def hist_checks(launches: dict) -> list:
     out = []
     for dtype in ("f32", "int8", "bf16"):
         total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
-        for (R, L), leaves in multi.items():
+        for R, L in multi:
             if dtype == "f32":
                 x, s = torch.randn((R, L), generator=gen, device="cuda"), None
             else:
@@ -533,16 +653,17 @@ def hist_checks(launches: dict) -> list:
                                                            sc), 10)
                 plain = time_ms(lambda: ref.hist_level_ref(x, seg1, hi, shift,
                                                            sc), 2)
+                n = shapes[dtype]["hist_level"].get((R, L, shift), 0)
                 for key, val in (("ms", ms), ("plain_ms", plain),
                                  ("bound_ms", b)):
-                    total[key] += leaves * val
+                    total[key] += n / 2 * val       # 2 rounds
                 out.append({
                     "name": "hist_level", "dtype": dtype, "shape": [R, L],
                     "level": j, "route": "cuda",
                     "source": "src/repro_torch/csrc/hist_level.cu",
                     "replaces": "src/repro/kernels/fedfa_quantile/"
                                 "multilevel.py:107",
-                    "launches": launches[dtype]["hist_level"] // 2,
+                    "launches": n,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
                     "bound_ms": b, "bound_by": by, "library_ms": None})
             t, ss = multilevel.row_trimmed_stats_multilevel(x, q[:, 0], s)
@@ -553,15 +674,19 @@ def hist_checks(launches: dict) -> list:
             torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0)
             del x, levels, pt, pss
         # the round: each multilevel leaf once per level
-        n_launches = 4 * sum(multi.values())
-        check(launches[dtype]["hist_level"] == 2 * n_launches,
-              f"hist_level {dtype}: {launches[dtype]['hist_level']} launches "
-              f"in 2 rounds, expected {2 * n_launches}")
+        by_shape = shapes[dtype]["hist_level"]
+        check(sum(by_shape.values()) == launches[dtype]["hist_level"]
+              and by_shape == {(R, L, 24 - 8 * j): 2 * leaves
+                               for (R, L), leaves in multi.items()
+                               for j in range(4)},
+              f"hist_level {dtype}: launches by (rows, shift) {by_shape} in "
+              f"2 rounds, expected each leaf's 4 levels twice")
         out.append({
             "name": "hist_level", "dtype": dtype, "shape": "round",
             "route": "cuda", "source": "src/repro_torch/csrc/hist_level.cu",
             "replaces": "src/repro/kernels/fedfa_quantile/multilevel.py:107",
-            "launches": n_launches, "max_abs_err": total["err"],
+            "launches": launches[dtype]["hist_level"], "rounds": 2,
+            "max_abs_err": total["err"],
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"], "bound_by": "bytes",
             "library_ms": None})
@@ -595,7 +720,7 @@ def serve_card_vs_cpu(flash) -> None:
                 eng = serve.Engine(cfg, tree_map(lambda t: t.to(dev), params),
                                    capacity=prompt_len + 16,
                                    cache_dtype=cache)
-                flash.launches = 0
+                flash.reset()
                 out[dev] = eng.generate(prompts, max_new=8,
                                         return_logits=True)
                 want_launches = flash_launches if dev == "cuda" else 0
@@ -627,7 +752,7 @@ def serve_path(kernels, arch: str, batch: int, prompt_len: int,
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     for k in kernels:
-        k.launches = 0
+        k.reset()
     t0 = time.perf_counter()
     out = serve.serve(arch, batch, prompt_len, max_new, full_size=True,
                       device="cuda")
@@ -667,9 +792,13 @@ def ssd_inputs(G, Q, nh, hp, N, dtype, gen):
 def ssd_checks(launches: int) -> list:
     """``ssd_intra_chunk`` against its plain version at the serving path's
     shape (batch 8 x prompt 1024 in chunks of 128: G = 64; 24 heads of 64,
-    state 128), f32 and bf16 inputs; the whole chunked SSD against its
-    plain version; and the wrapper's refusal of inputs that need a
-    gradient."""
+    state 128), f32 and bf16 inputs: y and the state within 1e-4 + 1e-4·|w|,
+    L bit-equal; the whole chunked SSD against its plain version; and the
+    wrapper's refusal of inputs that need a gradient.  The bound is that of
+    the kernel's route: the larger of the bytes and the tensor-core
+    operations, the three products over their causal triangles as three
+    TF32 products each at f32, and at bf16 C·Bᵀ as one bf16 product and
+    M·x and the state as two TF32 products each."""
     from repro_torch.kernels.ssd import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     G, Q, nh, hp, N = 64, 128, 24, 64, 128
@@ -680,19 +809,22 @@ def ssd_checks(launches: int) -> list:
         for what, g, w in zip(("y", "state"), got, want):
             check(bool(((g - w).abs() <= 1e-4 + 1e-4 * w.abs()).all()),
                   f"ssd_intra_chunk {dtype} {what} disagrees")
-        check(bool(((got[2] - want[2]).abs() <= 1e-5).all()),
-              f"ssd_intra_chunk {dtype} L disagrees")
+        check(torch.equal(got[2], want[2]),
+              f"ssd_intra_chunk {dtype} L differs")
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        # operations: C·Bᵀ once per chunk, M·x and the state per head,
-        # 2 per multiply-add, the causal products over their lower triangle
+        # operations, 2 per multiply-add: C·Bᵀ once per chunk, M·x and the
+        # state per head, the causal products over their lower triangle
         # (s <= t: Q(Q+1)/2 entries); bytes: each input read and output
         # written once
         tri = Q * (Q + 1) // 2
-        ops_n = 2 * G * (tri * N + nh * (tri * hp + Q * hp * N))
+        cb_ops = 2 * G * tri * N
+        head_ops = 2 * G * nh * (tri * hp + Q * hp * N)
+        ops_s = (3 * (cb_ops + head_ops) / TF32_OPS_PER_S if nbytes == 4 else
+                 cb_ops / BF16_OPS_PER_S + 2 * head_ops / TF32_OPS_PER_S)
         bytes_n = (G * Q * nh * hp * nbytes + G * Q * nh * 4 + nh * 4
                    + 2 * G * Q * N * nbytes + G * Q * nh * hp * 4
                    + G * nh * hp * N * 4 + G * Q * nh * 4)
-        b, by = bound(bytes_n, ops_n)
+        b, by = bound(bytes_n, ops_s * TF32_OPS_PER_S, TF32_OPS_PER_S)
         out.append({
             "name": "ssd_intra_chunk",
             "dtype": "f32" if dtype == torch.float32 else "bf16",
@@ -702,7 +834,10 @@ def ssd_checks(launches: int) -> list:
             "launches": launches, "max_abs_err": err,
             "ms": time_ms(lambda: ops.ssd_intra_chunk(*a), 10),
             "plain_ms": time_ms(lambda: ref.ssd_intra_chunk_ref(*a), 3),
-            "bound_ms": b, "bound_by": by, "library_ms": None})
+            "bound_ms": b, "bound_by": by,
+            # the first version's bound, f32 on the CUDA cores
+            "cuda_core_bound_ms": (cb_ops + head_ops) / F32_OPS_PER_S * 1e3,
+            "library_ms": None})
         del a, got, want
     x, dt, A, B, C = ssd_inputs(8, 1024, nh, hp, N, torch.float32, gen)
     y, h = ops.ssd(x, dt, A, B, C, Q)
@@ -860,15 +995,20 @@ def main() -> int:
     for dtype in ("int8", "bf16"):
         small_quantized_check(dtype)
     f32_path = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL]
-    launches = {}
+    launches, shapes, quantile_calls = {}, {}, {}
     for dtype in ("f32", "int8", "bf16"):
         hist = main_path(kernels, dtype, f32_path if dtype == "f32"
                          else f32_path + [QUANT_ACCUM])
         launches[dtype] = hist["launches"]
+        shapes[dtype] = hist["by_shape"]
+        quantile_calls[dtype] = hist["quantile_calls"]
         print(json.dumps({"main_path": {"update_dtype": dtype, **{
             k: hist[k] for k in ("round_loss", "global_acc", "local_acc",
-                                 "launches", "seconds", "peak_gib")}}}),
-              flush=True)
+                                 "launches", "seconds", "peak_gib")},
+            "launches_by_shape": {
+                sym: [[list(shape), n] for shape, n in c.items()]
+                for sym, c in hist["by_shape"].items() if c}}}), flush=True)
+        del hist
     for dtype in ("f32", "int8"):
         timing, g = round_timing(dtype)
         print(json.dumps({"round": timing, "card": card}), flush=True)
@@ -887,8 +1027,9 @@ def main() -> int:
         sp = serve_path(kernels, arch, *shape, expect)
         launches[f"{arch}@{shape[1]}"] = sp["launches"]
         print(json.dumps({"serve_path": sp, "card": card}), flush=True)
-    print(json.dumps({"kernels": kernel_checks(launches)
-                      + hist_checks(launches) + ssd_checks(
+    print(json.dumps({"kernels": kernel_checks(launches, shapes,
+                                               quantile_calls)
+                      + hist_checks(launches, shapes) + ssd_checks(
         launches["mamba2-130m@1024"]["ssd_intra_chunk"]) + flash_checks(
         launches["smollm-135m@4096"]["flash_attention"])}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,15 @@
 Each ``.cu`` source has a plain C entry point and is compiled by ``nvcc``
 into its own shared library (for ``sm_90a``), loaded with ``ctypes``.  A
 library is built at first use into ``build/kernels/`` at the repository
-root (listed in ``.gitignore``), named by a hash of its source and flags so
-an edited source is rebuilt.  ``build_all`` starts one ``nvcc`` per source
+root (listed in ``.gitignore``), named by a hash of its source, of every
+header (``*.cuh``) beside it and of the flags (with the ``-D`` values a
+wrapper passes its kernel), so that an edited source, shared header or
+value is rebuilt.  ``build_all`` starts one ``nvcc`` per source
 at once.  Nothing is built or loaded when this module is imported.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -34,23 +37,35 @@ def _nvcc() -> str:
 
 
 class CudaKernel:
-    """One kernel's shared library, its C entry point and a launch count.
+    """One kernel's shared library, its C entry point and launch counts.
 
-    ``launches`` grows by one each time ``launch`` runs the kernel and is
-    reset by whoever reads it."""
+    ``defines`` are compile-time constants of the source (``-D`` flags),
+    set where the wrapper also reads them.  ``launches`` grows by one each
+    time ``launch`` runs the kernel, and ``by_shape[shape]`` too where the
+    wrapper names the shape it launched at; ``reset`` zeroes both."""
 
-    def __init__(self, source: str, symbol: str, argtypes: List):
+    def __init__(self, source: str, symbol: str, argtypes: List,
+                 defines: Optional[dict] = None):
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = argtypes
+        self.flags = NVCC_FLAGS + tuple(
+            f"-D{k}={v}" for k, v in sorted((defines or {}).items()))
         self.launches = 0
+        self.by_shape = collections.Counter()
         self._fn = None
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.by_shape.clear()
 
     @property
     def library(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes()
-                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        return BUILD_DIR / f"{self.source.stem}-{h}.so"
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(self.flags).encode())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:12]}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start nvcc for this kernel unless its library is already built."""
@@ -59,8 +74,8 @@ class CudaKernel:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
         log = open(self.library.with_suffix(".log"), "w")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                 str(self.source)],
+        proc = subprocess.Popen([_nvcc(), *self.flags, "-I", str(CSRC),
+                                 "-o", str(tmp), str(self.source)],
                                 stdout=log, stderr=subprocess.STDOUT)
         proc.tmp, proc.log = tmp, log
         return proc
@@ -74,13 +89,16 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Run the kernel on the current stream; raise if it did not launch."""
+    def launch(self, *args, shape: Optional[tuple] = None) -> None:
+        """Run the kernel on the current stream; raise if it did not launch.
+        ``shape`` names the launch's shape in ``by_shape``."""
         rc = self._load()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error "
                                f"{rc}")
         self.launches += 1
+        if shape is not None:
+            self.by_shape[shape] += 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> None:

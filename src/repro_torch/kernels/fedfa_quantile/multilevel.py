@@ -75,7 +75,7 @@ def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
     HIST_LEVEL.launch(x.data_ptr(), code, seg_id.data_ptr(),
                       None if sc is None else sc.data_ptr(), hi.data_ptr(),
                       cnt.data_ptr(), sq.data_ptr(), m, C, S, shift, sms,
-                      stream_of(x))
+                      stream_of(x), shape=(m, C, shift))
     return cnt, sq
 
 

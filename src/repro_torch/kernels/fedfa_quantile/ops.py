@@ -20,10 +20,46 @@ from repro_torch.kernels.fedfa_quantile import multilevel, ref
 _LANES = 128
 _SINGLE_PASS_ELEMS = 1 << 18
 
+# quantile_fused's launch geometry, set here alone (the kernel is built
+# with the last four as -D flags): a row is held in the shared memory of a
+# cluster of CTAs, at most _CLUSTER_PART bytes of it a CTA where
+# _MAX_CLUSTER CTAs allow it; a CTA's static shared memory is at most
+# _STATIC_SMEM (the kernel asserts it), _GATHER bytes of it CTA 0's
+# candidates, and all of it at most _SMEM_MAX
+_CLUSTER_PART = 64 << 10
+_MAX_CLUSTER = 8
+_STATIC_SMEM = 20480
+_GATHER = 10240
+_SMEM_MAX = 232448
+
 QUANTILE_FUSED = CudaKernel(
     "quantile_fused.cu", "quantile_fused",
     [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-    + [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p])
+    + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+       ctypes.c_void_p],
+    defines={"QF_MAX_CLUSTER": _MAX_CLUSTER, "QF_STATIC_SMEM": _STATIC_SMEM,
+             "QF_GATHER": _GATHER, "QF_SMEM_MAX": _SMEM_MAX})
+
+
+def cluster_geometry(L: int, itemsize: int, cs: Optional[int] = None):
+    """(cluster size, elements a CTA holds, shared-memory bytes of a CTA)
+    for rows of L elements of ``itemsize`` bytes: the fewest CTAs, a power
+    of two up to 8, that hold at most 64 KB of the row each, else 8 (or
+    ``cs`` CTAs, for the ablation's sweep); a CTA's part rounded up to
+    whole 16-byte vectors, and 16 bytes more for a row that starts inside
+    one.  Raises for rows that the cluster cannot hold."""
+    vec = 16 // itemsize
+    sizes = [cs] if cs else [c for c in (1, 2, 4, 8) if c <= _MAX_CLUSTER]
+    for cs in sizes:
+        per = -(-(-(-L // cs)) // vec) * vec
+        if per * itemsize <= _CLUSTER_PART:
+            break
+    smem = per * itemsize + 16 + _STATIC_SMEM
+    if smem > _SMEM_MAX:
+        raise ValueError(f"quantile_fused's kernel holds a row in the shared "
+                         f"memory of {cs} CTAs: rows of {L} elements of "
+                         f"{itemsize} bytes do not fit")
+    return cs, per, smem
 
 
 def quantile_fused(rows: torch.Tensor, q: torch.Tensor,
@@ -44,11 +80,13 @@ def quantile_fused(rows: torch.Tensor, q: torch.Tensor,
         check_input("scale", scale, torch.float32, (R,), rows.device)
     if rows.device.type == "cpu":
         return ref.row_trimmed_stats_ref(ref.dequantize_rows(rows, scale), q)
+    cs, per, _ = cluster_geometry(L, rows.element_size())
     t = torch.empty(R, dtype=torch.float32, device=rows.device)
     ss = torch.empty(R, dtype=torch.float32, device=rows.device)
     QUANTILE_FUSED.launch(rows.data_ptr(), code, q.data_ptr(),
                           None if scale is None else scale.data_ptr(),
-                          t.data_ptr(), ss.data_ptr(), R, L, stream_of(rows))
+                          t.data_ptr(), ss.data_ptr(), R, L, cs, per,
+                          stream_of(rows), shape=(R, L))
     return t, ss
 
 

@@ -20,18 +20,21 @@ SSD_INTRA_CHUNK = CudaKernel(
     [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
-# the kernel's limits (register tiles and one block's shared memory)
+# the kernel's limits (its shared-memory tiles, padded to these)
 _MAX_Q, _MAX_N, _MAX_HP = 128, 128, 64
 
 
-def heads_per_block(G: int, Q: int, nh: int, hp: int, N: int,
-                    sms: int) -> int:
-    """The divisor hg of nh for the fewest f32 multiply-adds on the busiest
-    SM: a block forms C·Bᵀ (Q·Q·N) once for its hg heads (Q·hp·(Q+N)
-    each), and the G·nh/hg blocks run about one an SM at a time."""
+def heads_per_block(G: int, Q: int, nh: int, hp: int, N: int, sms: int,
+                    itemsize: int = 4) -> int:
+    """The divisor hg of nh for the fewest bytes through the busiest SM.
+    A block takes one SM (its shared memory), reads B and C of its chunk
+    once (2·Q·N elements) and, for each of its hg heads, x (Q·hp) and dt,
+    and writes y, the state and L in f32; the G·nh/hg blocks run in waves
+    of ``sms``.  ``itemsize`` is the bytes of an x, B or C element."""
     def cost(hg):
         waves = -(-(G * nh // hg) // sms)
-        return waves * (Q * Q * N + hg * Q * hp * (Q + N))
+        head = Q * hp * itemsize + 4 * (Q + Q * hp + hp * N + Q)
+        return waves * (2 * Q * N * itemsize + hg * head)
     return min((hg for hg in range(1, nh + 1) if nh % hg == 0), key=cost)
 
 
@@ -64,6 +67,9 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_intra_chunk's kernel takes Q <= {_MAX_Q}, "
                          f"N <= {_MAX_N} and hp <= {_MAX_HP}, each a multiple "
                          f"of 4; got Q={Q}, N={N}, hp={hp}")
+    # the kernel's 16-byte copies need x, B and C aligned: copy a view
+    # that starts inside a vector
+    x, B, C = (t.clone() if t.data_ptr() % 16 else t for t in (x, B, C))
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((G, Q, nh, hp), **f32)
     state = torch.empty((G, nh, hp, N), **f32)
@@ -72,7 +78,9 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     SSD_INTRA_CHUNK.launch(x.data_ptr(), DTYPE_CODES[x.dtype], dt.data_ptr(),
                            A.data_ptr(), B.data_ptr(), C.data_ptr(),
                            y.data_ptr(), state.data_ptr(), L.data_ptr(), G, Q,
-                           nh, hp, N, heads_per_block(G, Q, nh, hp, N, sms),
+                           nh, hp, N,
+                           heads_per_block(G, Q, nh, hp, N, sms,
+                                           x.element_size()),
                            stream_of(x))
     return y, state, L
 

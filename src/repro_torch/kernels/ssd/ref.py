@@ -10,6 +10,8 @@ from typing import Callable, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention.ref import split_tf32_product
+
 
 # XLA's CPU compiler rewrites a cumulative sum (``jnp.cumsum`` lowers to a
 # reduce-window) into tiles of this many elements: a sequential sum within
@@ -59,6 +61,33 @@ def ssd_intra_chunk_ref(x, dt, A, B, C):
     decay_end = torch.exp(L[:, -1:, :] - L)                   # (G, Q, nh)
     dB = Bf[:, :, None, :] * (dtf * decay_end)[..., None]     # (G, Q, nh, N)
     state = torch.einsum("gshn,gshp->ghpn", dB, xf)
+    return y, state, L
+
+
+def ssd_intra_chunk_split_tf32_ref(x, dt, A, B, C, terms: int = 3):
+    """``ssd_intra_chunk_ref`` with its three products taken as the CUDA
+    kernel's tensor-core route takes them (``split_tf32_product``: lo·hi′ +
+    hi·lo′ + hi·hi′ of TF32 halves): C·Bᵀ, y = M·x and the state as
+    (x·w)·B, w = dt·exp(L_{Q-1} − L).  bf16 inputs are exact in TF32
+    (their lo halves are 0), so for them C·Bᵀ is exact and M·x and the
+    state are two TF32 products, as on the card.  ``terms=1`` takes hi·hi′
+    alone."""
+    Q = x.shape[1]
+    xf, dtf = x.to(torch.float32), dt.to(torch.float32)
+    Bf = B.to(torch.float32)
+    L = cumsum_like_jax(dtf * A[None, None, :], 1)
+    CB = split_tf32_product("gtn,gsn->gts", C.to(torch.float32), Bf, terms)
+    diff = L[:, :, None, :] - L[:, None, :, :]
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=x.device))[None, :, :, None]
+    zero = torch.zeros((), device=x.device)
+    M = torch.where(causal, CB[..., None] * torch.exp(
+        torch.where(causal, diff, zero)), zero)
+    M = M * dtf[:, None, :, :]
+    y = split_tf32_product("gtsh,gshp->gthp", M, xf, terms)
+    w = dtf * torch.exp(L[:, -1:, :] - L)                     # (G, Q, nh)
+    state = split_tf32_product("gshp,gsn->ghpn", xf * w[..., None], Bf,
+                               terms)
     return y, state, L
 
 

@@ -303,3 +303,104 @@ def test_hist_level_planes_differ_where_prefixes_differ():
         c1, s1 = multilevel.hist_level(x, seg, alone, shift, sc)
         assert torch.equal(cnt[:, p], c1[:, 0])
         assert torch.equal(sq[:, p], s1[:, 0])
+
+
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+def test_quantile_cluster_geometry_over_single_pass_lengths(itemsize):
+    """quantile_fused's launch geometry for every row length the single-pass
+    kernel takes (L <= 2^18): a cluster of 1, 2, 4 or 8 CTAs that holds the
+    row in 16-byte vectors, at most 64 KB of it a CTA unless 8 CTAs do not
+    allow it, the fewest such CTAs, and a CTA's shared memory within the
+    227 KB a block may take.  The main path's (240, 110,592) rows take 8,
+    4 and 2 CTAs at f32, bf16 and int8; rows 8 CTAs cannot hold raise."""
+    vec = 16 // itemsize
+    part = ops._CLUSTER_PART
+    for L in range(1, (1 << 18) + 1):
+        cs, per, smem = ops.cluster_geometry(L, itemsize)
+        assert cs in (1, 2, 4, 8) and cs * per >= L and per % vec == 0
+        assert per * itemsize <= part or cs == 8
+        assert cs == 1 or -(-(-(-L // (cs // 2))) // vec) * vec * itemsize \
+            > part
+        assert smem == per * itemsize + 16 + ops._STATIC_SMEM <= 232_448
+    assert ops.cluster_geometry(110_592, itemsize)[0] == {4: 8, 2: 4,
+                                                          1: 2}[itemsize]
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.cluster_geometry(8 * (232_448 // itemsize), itemsize)
+
+
+def test_library_name_hashes_shared_headers(tmp_path):
+    """A kernel's library is named by its source, every header beside it
+    and the flags: editing a shared header names every kernel's library
+    anew, so each is rebuilt."""
+    from repro_torch.kernels.build import CudaKernel
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "b.cu").write_text("// no header\n")
+    (tmp_path / "shared.cuh").write_text("// helpers\n")
+    a = CudaKernel(str(tmp_path / "a.cu"), "a", [])
+    b = CudaKernel(str(tmp_path / "b.cu"), "b", [])
+    before = (a.library, b.library)
+    assert a.library == before[0]          # the same files, the same name
+    (tmp_path / "shared.cuh").write_text("// helpers, edited\n")
+    assert a.library != before[0] and b.library != before[1]
+    edited = a.library
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n// edited\n')
+    assert a.library not in (before[0], edited)
+
+
+def test_ablation_edits_match_their_sources():
+    """launch/ablate.py builds each variant by text replacements in its
+    kernel's source: every replaced text is still in the source (the tool
+    raises on one that is not)."""
+    from repro_torch.launch import ablate
+    for kernel, variants in (
+            (ablate.FLASH_ATTENTION, ablate.FLASH_VARIANTS),
+            (ablate.HIST_LEVEL, ablate.HIST_VARIANTS),
+            (ablate.SSD_INTRA_CHUNK, ablate.SSD_VARIANTS),
+            (ablate.QUANTILE_FUSED, ablate.QUANTILE_VARIANTS)):
+        src = kernel.source.read_text()
+        for name, edits in variants:
+            for old, _ in edits:
+                assert old in src, (kernel.symbol, name, old)
+
+
+def test_library_name_hashes_defines(tmp_path):
+    """A kernel's compile-time values (-D flags) are part of its library's
+    name: changing one rebuilds it."""
+    from repro_torch.kernels.build import CudaKernel
+    (tmp_path / "a.cu").write_text("// uses N\n")
+    one = CudaKernel(str(tmp_path / "a.cu"), "a", [], defines={"N": 1})
+    two = CudaKernel(str(tmp_path / "a.cu"), "a", [], defines={"N": 2})
+    assert "-DN=1" in one.flags and "-DN=2" in two.flags
+    assert one.library != two.library
+    assert one.library == CudaKernel(str(tmp_path / "a.cu"), "a", [],
+                                     defines={"N": 1}).library
+
+
+def test_launch_counts_by_shape(tmp_path):
+    """``launch`` counts every launch, and by shape where the wrapper names
+    one; ``reset`` zeroes both; a launch that fails counts nowhere."""
+    from repro_torch.kernels.build import CudaKernel
+    (tmp_path / "a.cu").write_text("\n")
+    k = CudaKernel(str(tmp_path / "a.cu"), "a", [])
+    rcs = iter([0, 0, 0, 2])
+    k._fn = lambda *args: next(rcs)
+    k.launch(1, shape=(240, 576))
+    k.launch(2, shape=(240, 576))
+    k.launch(3)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        k.launch(4, shape=(8, 576))
+    assert k.launches == 3 and dict(k.by_shape) == {(240, 576): 2}
+    k.reset()
+    assert k.launches == 0 and not k.by_shape
+
+
+def test_quantile_fused_limits_set_in_one_place():
+    """quantile_fused's launch limits are set in ops.py alone: the kernel
+    is built with each as a -D flag and takes its constant from it."""
+    src = ops.QUANTILE_FUSED.source.read_text()
+    for name, value in (("QF_MAX_CLUSTER", ops._MAX_CLUSTER),
+                        ("QF_STATIC_SMEM", ops._STATIC_SMEM),
+                        ("QF_GATHER", ops._GATHER),
+                        ("QF_SMEM_MAX", ops._SMEM_MAX)):
+        assert f"-D{name}={value}" in ops.QUANTILE_FUSED.flags
+        assert f" = {name};" in src, name

@@ -6,10 +6,14 @@ decode at full width and with half its heads masked.
 
 Tolerances: f32 at atol 1e-5 (the intra-chunk products are sums of at most
 128 terms taken in another order; L, summed in the reference's own order,
-is bit-equal), rtol 1e-5 / atol 1e-5 for the chunked SSD (the carry adds
+is bit-equal); rtol 1e-5 / atol 1e-5 for the chunked SSD (the carry adds
 one product per chunk), rtol 1e-4 / atol 1e-5 for the block (two
 projections and a norm around it); bf16 inputs at atol 1e-2, as the JAX
-package's own sweep holds its bf16 SSD (both widen to f32 first)."""
+package's own sweep holds its bf16 SSD (both widen to f32 first).  The
+emulation of the CUDA kernel's split-TF32 route is held at the card's
+check, 1e-4 + 1e-4·|w|."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -176,3 +180,62 @@ def test_softplus_follows_jax_above_twenty():
     x = np.array([-30.0, -1.0, 0.0, 3.0, 19.0, 20.5, 40.0], np.float32)
     np.testing.assert_array_equal(ssm.softplus(torch.from_numpy(x)).numpy(),
                                   np.asarray(jax.nn.softplus(x)))
+
+
+# --- the CUDA kernel's tensor-core route, emulated on the CPU -------------
+
+def _within_card_tolerance(got, want):
+    """chip_smoke.py's check of the kernel's y and state: |got - want| <=
+    1e-4 + 1e-4·|want|."""
+    got, want = _np(got), np.asarray(want, np.float32)
+    return bool((np.abs(got - want) <= 1e-4 + 1e-4 * np.abs(want)).all())
+
+
+@functools.lru_cache(maxsize=None)
+def _interpret(b, S, nh, hp, N, Q, dtype):
+    """The grouped inputs and the Pallas kernel's outputs in interpret mode."""
+    x, dt, A, B, C = _inputs(b, S, nh, hp, N, dtype)
+    xg, dtg, Bg, Cg = _grouped(x, dt, B, C, Q)
+    args = (xg, dtg, A, Bg, Cg)
+    out = jssd_intra_chunk(*(jnp.asarray(a) for a in args), interpret=True)
+    return args, tuple(np.asarray(o, np.float32) for o in out)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,S,nh,hp,N,Q", SHAPES)
+def test_split_tf32_ref_matches_interpret_kernel(b, S, nh, hp, N, Q, dtype):
+    """The CUDA kernel takes C·Bᵀ, M·x and the state on the tensor cores:
+    three TF32 products each from f32 inputs (two for M·x and the state
+    from bf16 ones, which are exact in TF32).  Its emulation holds the
+    card's tolerance against the Pallas kernel in interpret mode, and L
+    keeps its bits."""
+    args, want = _interpret(b, S, nh, hp, N, Q, dtype)
+    got = ref.ssd_intra_chunk_split_tf32_ref(*(_t(a) for a in args))
+    for g, w in zip(got[:2], want[:2]):
+        assert _within_card_tolerance(g, w)
+    np.testing.assert_array_equal(_np(got[2]), want[2])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_single_tf32_product_misses_card_tolerance(dtype):
+    """hi·hi′ alone, one TF32 product, misses the card's tolerance: the
+    check above can fail, and the kernel needs the other products."""
+    args, want = _interpret(*SHAPES[1], dtype)
+    got = ref.ssd_intra_chunk_split_tf32_ref(*(_t(a) for a in args), terms=1)
+    assert not all(_within_card_tolerance(g, w)
+                   for g, w in zip(got[:2], want[:2]))
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_heads_per_block_over_shapes(itemsize):
+    """heads_per_block over chunk counts 1..256 and the head counts of the
+    registry's SSD widths: a divisor of nh; one head a block while the
+    grid fits one wave of the SMs; at mamba2-130m's 8 x 1024 prefill (G =
+    64, 24 heads) 12, 128 blocks in one wave of 132."""
+    for nh in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64):
+        for G in range(1, 257):
+            hg = ops.heads_per_block(G, 128, nh, 64, 128, 132, itemsize)
+            assert nh % hg == 0
+            if G * nh <= 132:
+                assert hg == 1
+    assert ops.heads_per_block(64, 128, 24, 64, 128, 132, itemsize) == 12
