@@ -22,6 +22,23 @@
    fails unless the losses are finite and every kernel of the path ran.
    Then the same with ``--update-dtype int8`` and with ``bf16``, each its
    own path with its own counts.
+   Then the async driver: the card-vs-CPU check at the 4-layer size (the
+   skewed trace of the async tests: the last client of each cohort
+   arrives after 40, the others after 1 + (i mod 3); capacity 4, merge_k
+   2, staleness_max 1, one attacker, 4 merges), the schedule (weights,
+   simulated times, merged and dropped rows) equal exactly, at f32 the
+   losses and the global after every merge at rtol 1e-3 / atol 1e-4, at
+   int8 each card merge started from the CPU's global and pool and held to
+   the flip allowance; and parity mode on the card, bit-equal to the
+   card's ``run_rounds`` (f32 and int8).  Then ``run_fl(driver="async")``
+   at the CLI defaults and full size for 4 merges (capacity 8, merge_k 4)
+   at f32 and int8, counts reset before each: fails unless the losses are
+   finite and each kernel ran exactly its launches per merge; times one
+   merge alone (CUDA events) and one admission of 4 clients.  The f32 run
+   writes its checkpoints into a temporary directory: the last one,
+   restored onto the card, equals the final global; one saved from the
+   card restores bit-equal on the CPU; saving and restoring the full model
+   are timed.
 5. Times one resident round and its aggregation alone, at f32 and int8.
 6. Drives ``trimmed_norm`` (the entry point of ``trimmed_sumsq``) once on
    the full-size global, counts reset just before it.
@@ -80,6 +97,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -221,6 +239,235 @@ def small_quantized_check(update_dtype: str) -> None:
         round_close(g["cuda"].cpu().numpy(), want, steps.numpy(),
                     f"small {update_dtype} check, round {r}")
         log(f"small {update_dtype} check round {r}: losses {loss}")
+
+
+ASYNC_SKEW = dict(capacity=4, merge_k=2, staleness_max=1)
+
+
+def _async_cohort(dev: str):
+    """The async tests' 4-layer cohort (seed 5: 4 clients, the attacker is
+    client 2) and its data_fn on ``dev``."""
+    from repro_torch.core.server import make_client_specs
+    from repro_torch.data import partition, pipeline, synthetic
+    from repro_torch.launch import train
+    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=False)
+    specs = make_client_specs(cfg, 4, archs=train.client_arch_pool(cfg, "width"),
+                              malicious_frac=0.25, seed=5)
+    parts = partition.iid_partition(4, 10, seed=5)
+    profiles = synthetic.make_class_profiles(10, cfg.vocab_size, seed=5)
+
+    def data_fn(r):
+        b = pipeline.round_batches_cls(
+            parts, list(range(4)), 10, cfg.vocab_size, local_steps=2,
+            batch=2, seq_len=8, profiles=profiles, seed=100 + r)
+        return specs, {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+                       for k, v in b.items()}
+    return cfg, specs, data_fn
+
+
+def small_async_check() -> dict:
+    """The async engine at the 4-layer size on the card and on the CPU, same
+    weights, over the skewed trace (the last client of each cohort arrives
+    after 40, the others after 1 + (i mod 3)) for 4 merges: the schedule
+    (weights, simulated times, merged and dropped rows) equal exactly; at
+    f32 the losses and the global after every merge at rtol 1e-3 / atol
+    1e-4; at int8 each card merge starts from the CPU's global and pool,
+    losses at rtol 1e-4 and the global within the flip allowance.  Then
+    parity mode on the card, bit-equal to the card's ``run_rounds``."""
+    from repro_torch.core import flat
+    from repro_torch.core.async_round import (AsyncConfig, AsyncEngine,
+                                              run_async)
+    from repro_torch.core.round import run_rounds
+    from repro_torch.core.server import FLConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.sim import ParitySource, TraceSource
+    from repro_torch.tree import tree_map
+
+    cfg = _async_cohort("cpu")[0]
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    index = flat.FlatIndex(params)
+    lat = lambda i: 40.0 if i % 4 == 3 else 1.0 + (i % 3)
+    out = {}
+    for dtype in ("f32", "int8"):
+        fl = FLConfig(local_steps=2, lr=0.05, strategy="fedfa", task="cls",
+                      update_dtype=dtype)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            _, specs, data_fn = _async_cohort(dev)
+            rec, sched = [], []
+            eng = AsyncEngine(flat.flatten(index, params).to(dev), cfg, fl,
+                              index, TraceSource(data_fn, lat),
+                              acfg=AsyncConfig(**ASYNC_SKEW),
+                              on_merge=rec.append)
+            while eng.merges < 4:
+                if eng.step() is None:
+                    continue
+                m = eng.merges - 1
+                sched.append((eng.now, eng.merged_rows, eng.dropped_rows))
+                if dtype == "f32":
+                    continue
+                if dev == "cpu":
+                    rec[m]["state"] = [t.clone() for t in eng._c_buf]
+                else:                  # the CPU's global and pool
+                    eng.g_buf.copy_(torch.from_numpy(runs["cpu"][0][m][
+                        "g_after"]))
+                    for t, c in zip(eng._c_buf, runs["cpu"][0][m]["state"]):
+                        t.copy_(c)
+            runs[dev] = (rec, sched)
+        (rec, sched), (want, want_sched) = runs["cuda"], runs["cpu"]
+        check(sched == want_sched, f"async {dtype}: card schedule {sched} "
+              f"!= cpu {want_sched}")
+        for m, (got, ref) in enumerate(zip(rec, want)):
+            check(np.array_equal(got["w"], ref["w"]),
+                  f"async {dtype} merge {m}: weights {got['w']} != "
+                  f"{ref['w']}")
+            if dtype == "f32":
+                np.testing.assert_allclose(got["loss"], ref["loss"],
+                                           rtol=1e-3)
+                np.testing.assert_allclose(got["g_after"], ref["g_after"],
+                                           rtol=1e-3, atol=1e-4)
+            else:
+                np.testing.assert_allclose(got["loss"], ref["loss"],
+                                           rtol=1e-4)
+                steps = ref["state"][1].amax(0)[torch.as_tensor(
+                    index.row_of).long()]
+                round_close(got["g_after"], ref["g_after"], steps.numpy(),
+                            f"small async {dtype} check, merge {m}")
+        check(any(r["w"][2] > 0 for r in rec), "the attacker never merged")
+        out[dtype] = {"schedule": sched,
+                      "weights": [r["w"].tolist() for r in rec],
+                      "loss": [r["loss"] for r in rec]}
+        log(f"small async {dtype} check: schedule {sched}, losses "
+            f"{out[dtype]['loss']}")
+        # parity mode on the card against the card's resident rounds
+        _, _, data_fn = _async_cohort("cuda")
+        on_card = lambda: tree_map(lambda t: t.to("cuda"), params)
+        p_sync, l_sync = run_rounds(on_card(), cfg, fl, 2, data_fn,
+                                    eval_every=0)
+        p_async, l_async = run_async(on_card(), cfg, fl, 2,
+                                     ParitySource(data_fn),
+                                     acfg=AsyncConfig.parity(4), eval_every=0)
+        check(l_sync == l_async and torch.equal(
+            flat.flatten(index, p_sync), flat.flatten(index, p_async)),
+            f"async {dtype} parity mode differs from run_rounds on the card: "
+            f"losses {l_async} vs {l_sync}")
+        out[dtype]["parity_losses"] = l_async
+    return out
+
+
+ASYNC_PER_MERGE = {"f32": {"scaled_accum": 2, "quantile_fused": 5,
+                           "hist_level": 24},
+                   "int8": {"scaled_accum": 1, "quant_accum": 1,
+                            "quantile_fused": 5, "hist_level": 24}}
+
+
+def async_path(kernels, update_dtype: str, ckpt=None) -> dict:
+    """``run_fl(driver="async")`` at the CLI defaults and full size for 4
+    merges (capacity 8, merge_k 4, staleness_max 4), every launch count
+    reset just before: fails unless the losses are finite and each kernel
+    of the path ran exactly its launches per merge (the resident round's at
+    m = 8; free slots go through the kernels with weight 0).  Then, on the
+    engine the run left: one merge alone (CUDA events) and one admission of
+    4 clients (host clock).  Returns the history and the engine."""
+    from repro_torch.core import async_round
+    from repro_torch.launch import train
+
+    engines, cls = [], async_round.AsyncEngine
+
+    class Recorded(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    for k in kernels:
+        k.reset()
+    torch.cuda.reset_peak_memory_stats()
+    async_round.AsyncEngine = Recorded
+    t0 = time.perf_counter()
+    try:
+        hist = train.run_fl("smollm-135m", 4, 16, strategy="fedfa", batch=8,
+                            seq_len=64, participation=0.5, local_steps=2,
+                            lr=0.05, task="cls", eval_every=5,
+                            driver="async", update_dtype=update_dtype,
+                            ckpt=ckpt, full_size=True, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        async_round.AsyncEngine = cls
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k.symbol: k.launches for k in kernels}
+    by_shape = {k.symbol: dict(k.by_shape) for k in kernels}
+    (eng,) = engines
+    check(len(hist["round_loss"]) == 4
+          and bool(np.all(np.isfinite(hist["round_loss"]))),
+          f"async {update_dtype} path losses {hist['round_loss']}")
+    want = {k.symbol: 4 * ASYNC_PER_MERGE[update_dtype].get(k.symbol, 0)
+            for k in kernels}
+    check(launches == want, f"async {update_dtype} path launches {launches}, "
+          f"expected {want} (4 merges)")
+
+    # one merge alone, over the pool the run left, all rows weighted
+    specs = [s or eng._pad_spec for s in eng.pool.specs]
+    w = np.full(eng.rows, 150.0, np.float32)
+    merge_ms = time_ms(lambda: eng.aggregate(w, specs), 3, warmup=1)
+    # one admission of 4 clients into slots 0-3 (the global is unchanged)
+    g_before = eng.g_buf.clone()
+    res, t = None, eng.now
+    while not res or not len(res[0]):    # the next clients available
+        res, t = eng.source(eng.dispatch_idx, t, 4), t + 1.0
+    specs, batches, _ = res
+    eng._pending = (np.arange(len(specs)), specs, batches, eng.dispatch_idx)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng._materialize()
+    torch.cuda.synchronize()
+    admit_ms = (time.perf_counter() - t1) * 1e3
+    check(torch.equal(g_before, eng.g_buf), "admission moved the global")
+    return {"update_dtype": update_dtype, "round_loss": hist["round_loss"],
+            "global_acc": hist["global_acc"], "launches": launches,
+            "launches_per_merge": {k: v / 4 for k, v in launches.items()},
+            "launches_by_shape": {
+                sym: [[list(shape), n] for shape, n in c.items()]
+                for sym, c in by_shape.items() if c},
+            "merged_rows": eng.merged_rows, "dropped_rows": eng.dropped_rows,
+            "dispatches": eng.dispatch_idx, "sim_time": eng.now,
+            "seconds": seconds, "ms_per_merge": seconds * 1e3 / 4,
+            "merge_ms": merge_ms, "admit_ms": admit_ms,
+            "admit_clients": len(specs), "peak_gib": peak}, eng
+
+
+def checkpoint_path(eng, prefix: str) -> dict:
+    """The f32 async run's last checkpoint restored onto the card equals
+    its final global; a checkpoint saved from CUDA tensors restores
+    bit-equal on the CPU; ``save_from_buffer`` and ``restore_to_buffer``
+    of the full model timed (host clock)."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import flat
+    from repro_torch.tree import tree_map
+    like = flat.unflatten(eng.index, eng.g_buf)
+    _, buf, meta = ckpt.restore_to_buffer(prefix + "_m00003", like)
+    check(buf.device.type == "cuda" and torch.equal(buf, eng.g_buf),
+          "the last async checkpoint differs from the final global")
+    check(meta["merge"] == 3 and meta["flat_n"] == eng.index.n,
+          f"checkpoint meta {meta}")
+    t0 = time.perf_counter()
+    ckpt.save_from_buffer(prefix + "_card", eng.index, eng.g_buf,
+                          meta={"merge": 3})
+    save_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, buf, _ = ckpt.restore_to_buffer(prefix + "_card", like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(torch.equal(buf, eng.g_buf), "card checkpoint does not restore")
+    del buf
+    _, cpu_buf, _ = ckpt.restore_to_buffer(
+        prefix + "_card", tree_map(lambda t: t.cpu(), like))
+    check(cpu_buf.device.type == "cpu"
+          and torch.equal(cpu_buf, eng.g_buf.cpu()),
+          "a checkpoint saved from the card does not restore on the CPU")
+    return {"n_params": eng.index.n, "bytes": eng.index.n * 4,
+            "save_s": save_s, "restore_s": restore_s}
 
 
 def main_path(kernels, update_dtype: str, path_kernels) -> dict:
@@ -994,6 +1241,7 @@ def main() -> int:
     small_reference_check()
     for dtype in ("int8", "bf16"):
         small_quantized_check(dtype)
+    print(json.dumps({"small_async": small_async_check()}), flush=True)
     f32_path = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL]
     launches, shapes, quantile_calls = {}, {}, {}
     for dtype in ("f32", "int8", "bf16"):
@@ -1009,6 +1257,16 @@ def main() -> int:
                 sym: [[list(shape), n] for shape, n in c.items()]
                 for sym, c in hist["by_shape"].items() if c}}}), flush=True)
         del hist
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("f32", "int8"):
+            res, eng = async_path(kernels, dtype, ckpt=tmp + "/async"
+                                  if dtype == "f32" else None)
+            launches[f"async-{dtype}"] = res["launches"]
+            print(json.dumps({"async_path": res, "card": card}), flush=True)
+            if dtype == "f32":
+                print(json.dumps({"checkpoint": checkpoint_path(
+                    eng, tmp + "/async"), "card": card}), flush=True)
+            del eng
     for dtype in ("f32", "int8"):
         timing, g = round_timing(dtype)
         print(json.dumps({"round": timing, "card": card}), flush=True)

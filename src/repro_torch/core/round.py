@@ -165,6 +165,7 @@ def run_rounds(global_params: Params, cfg: ArchConfig, fl: FLConfig,
                data_fn: Callable[[int], Tuple[Sequence[ClientSpec], Any]], *,
                eval_every: int = 5,
                eval_fn: Optional[Callable[[int, float, Params], None]] = None,
+               ckpt_path: Optional[str] = None,
                perm_fn: Optional[Callable[[int, int, int], torch.Tensor]] = None
                ) -> Tuple[Params, List[float]]:
     """Drive R resident rounds on the device of ``global_params``.
@@ -173,8 +174,10 @@ def run_rounds(global_params: Params, cfg: ArchConfig, fl: FLConfig,
     that device), called once per round.  perm_fn(r, m, n) -> (m, n) label
     permutations for round r's attackers; by default they are drawn from a
     ``torch.Generator`` seeded with ``fl.seed``.  eval_fn(r, mean_loss,
-    params) runs at ``eval_boundary`` rounds.  Returns (final params,
-    per-round mean losses)."""
+    params) runs at ``eval_boundary`` rounds; with ``ckpt_path`` set, a
+    checkpoint ``f"{ckpt_path}_r{r:05d}"`` is written from the resident
+    buffer at the same rounds.  Returns (final params, per-round mean
+    losses)."""
     if rounds <= 0:
         return global_params, []
     device = global_params["embed"].device
@@ -189,6 +192,12 @@ def run_rounds(global_params: Params, cfg: ArchConfig, fl: FLConfig,
         if any(s.malicious for s in specs):
             perms = perm_fn(r, len(specs), label_count(batches, fl.task)).to(device)
         losses.append(float(driver.round(g_buf, specs, batches, perms)))
-        if eval_fn is not None and eval_boundary(r, rounds, eval_every):
-            eval_fn(r, losses[-1], flat.unflatten(index, g_buf))
+        if eval_boundary(r, rounds, eval_every):
+            if eval_fn is not None:
+                eval_fn(r, losses[-1], flat.unflatten(index, g_buf))
+            if ckpt_path is not None:
+                from repro_torch.checkpoint import checkpoint as ckpt_mod
+                ckpt_mod.save_from_buffer(
+                    f"{ckpt_path}_r{r:05d}", index, g_buf,
+                    meta={"round": r, "strategy": fl.strategy})
     return flat.unflatten(index, g_buf), losses

@@ -1,9 +1,14 @@
 """Federated training driver, ``--mode fl``: synthetic federated rounds with
 heterogeneous client architectures, FedFA (or baseline) aggregation and
-optional backdoor attackers, with the resident or the per-round driver.
+optional backdoor attackers, with the resident, the per-round or the async
+driver.
 
     python -m repro_torch.launch.train --mode fl [--full-size] [--device cpu]
-        [--update-dtype f32|bf16|int8]
+        [--update-dtype f32|bf16|int8] [--ckpt PREFIX]
+        [--driver async [--merge-k K] [--staleness-max S]
+                        [--async-deadline T]]
+
+With ``--driver async``, ``--rounds`` counts merges.
 
 Runs on ``cuda`` unless ``--device`` says otherwise.  By default the model
 is cut to the JAX CLI's size (4 layers, 2 sections, a 64-entry untied
@@ -59,7 +64,9 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
            participation: float = 0.5, seed: int = 0, eval_every: int = 5,
            task: str = "cls", width_mults=(0.25, 0.5, 0.75, 1.0),
            arch_mode: str = "width", driver: str = "resident",
-           update_dtype: str = "f32", full_size: bool = False, device=None,
+           merge_k: int = 0, staleness_max: int = 4,
+           async_deadline: float = float("inf"), update_dtype: str = "f32",
+           ckpt: Optional[str] = None, full_size: bool = False, device=None,
            quiet: bool = False) -> dict:
     from repro_torch.core.masking import apply_mask_tree, axis_mask_tree
     from repro_torch.core.server import (FLConfig, fl_round, make_client_specs,
@@ -68,8 +75,8 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
     from repro_torch.data import pipeline, synthetic
     from repro_torch.models import model as model_mod
 
-    if driver not in ("resident", "per-round"):
-        raise NotImplementedError(f"driver {driver!r} is not yet ported")
+    if driver not in ("resident", "per-round", "async"):
+        raise ValueError(f"unknown driver {driver!r}")
     dev = resolve_device(device)
     cfg = fl_config(arch, task, n_classes, full_size)
     rng = np.random.default_rng(seed)
@@ -156,8 +163,34 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
         from repro_torch.core.round import run_rounds
         params, hist["round_loss"] = run_rounds(
             params, cfg, fl, rounds, round_data, eval_every=eval_every,
-            eval_fn=record_eval)
+            eval_fn=record_eval, ckpt_path=ckpt)
+    elif driver == "async":
+        # continuous arrivals from the trace-driven population simulator:
+        # clients keep their specs, but when they arrive comes from hashed
+        # device-class latency and availability traces, and merges fire on
+        # merge_k arrivals or the deadline (rounds counts merges)
+        from repro_torch.core.async_round import AsyncConfig, run_async
+        from repro_torch.sim import ClientPopulation, PopulationSource
+        population = ClientPopulation(n_clients, seed=seed)
+        capacity = max(1, int(round(participation * n_clients)))
+
+        def batch_fn(d, ids):
+            return to_dev(pipeline.round_batches_cls(
+                parts, ids, n_classes, cfg.vocab_size,
+                local_steps=local_steps, batch=batch, seq_len=seq_len,
+                profiles=profiles, seed=seed * 1000 + d))
+
+        source = PopulationSource(
+            population, lambda ids: [specs[int(i)] for i in ids], batch_fn)
+        acfg = AsyncConfig(
+            capacity=capacity,
+            merge_k=merge_k if merge_k > 0 else max(1, capacity // 2),
+            staleness_max=staleness_max, deadline=async_deadline)
+        params, hist["round_loss"] = run_async(
+            params, cfg, fl, rounds, source, acfg=acfg,
+            eval_every=eval_every, eval_fn=record_eval, ckpt_path=ckpt)
     else:
+        from repro_torch.checkpoint import checkpoint as ckpt_mod
         from repro_torch.core.round import (default_perms, eval_boundary,
                                             label_count)
         perm_fn = default_perms(seed)
@@ -173,6 +206,9 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
             hist["round_loss"].append(float(loss))
             if eval_boundary(r, rounds, eval_every):
                 record_eval(r, float(loss), params)
+                if ckpt is not None:
+                    ckpt_mod.save(f"{ckpt}_r{r:05d}", params,
+                                  meta={"round": r, "strategy": strategy})
     hist["final_acc"] = hist["global_acc"][-1] if hist["global_acc"] else None
     hist["final_local_acc"] = hist["local_acc"][-1] if hist["local_acc"] else None
     return hist
@@ -180,10 +216,8 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
 
 # flags of the JAX CLI that are not ported yet, with the value that means
 # "not used"; any other value raises
-_UNPORTED = {"steps": 200, "agg_engine": "flat", "merge_k": 0,
-             "staleness_max": 4, "async_deadline": float("inf"),
-             "mesh": "none", "mesh_shape": None, "use_kernel": "auto",
-             "interpret": False, "ckpt": None}
+_UNPORTED = {"steps": 200, "agg_engine": "flat", "mesh": "none",
+             "mesh_shape": None, "use_kernel": "auto", "interpret": False}
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -244,8 +278,10 @@ def main(argv: Optional[list] = None) -> dict:
                  local_steps=args.local_steps, lr=args.lr,
                  arch_mode=args.arch_mode, task=args.task,
                  eval_every=args.eval_every, driver=args.driver,
-                 update_dtype=args.update_dtype, full_size=args.full_size,
-                 device=args.device)
+                 merge_k=args.merge_k, staleness_max=args.staleness_max,
+                 async_deadline=args.async_deadline,
+                 update_dtype=args.update_dtype, ckpt=args.ckpt,
+                 full_size=args.full_size, device=args.device)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

@@ -125,8 +125,8 @@ def test_cli_runs_on_cpu(driver, tmp_path):
     assert 0.0 <= res["final_acc"] <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--driver", "async"], ["--mode", "dense"],
-                                  ["--mesh", "host"], ["--ckpt", "x"],
+@pytest.mark.parametrize("flag", [["--use-kernel", "on"], ["--mode", "dense"],
+                                  ["--mesh", "host"], ["--interpret"],
                                   ["--agg-engine", "tree"],
                                   ["--arch", "mamba2-130m"]])
 def test_cli_unported_flags_raise(flag):

@@ -80,6 +80,11 @@ def test_unported_arch_raises():
         get_arch("recurrentgemma-2b")
 
 
+def test_population_copy_matches_reference():
+    assert (REPO / "src" / "repro_torch" / "sim" / "population.py").read_text() \
+        == (REPO / "src" / "repro" / "sim" / "population.py").read_text()
+
+
 def test_synthetic_copy_matches_reference():
     for port, ref in [(synthetic, jsynthetic)]:
         np.testing.assert_array_equal(port.make_class_profiles(5, 40, seed=3),
@@ -137,6 +142,8 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    for pkg in ("sim", "checkpoint"):
+        assert REPO / "src" / "repro_torch" / pkg / "__init__.py" in files
     for path in files:
         text = path.read_text()
         for mod in _imports(ast.parse(text)):
