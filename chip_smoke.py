@@ -14,14 +14,40 @@
    on the card from the CPU's global and quantized state, at the round
    test's tolerance (losses rtol 1e-4; the global within rtol 1e-4 /
    atol 1e-5 but at most 1e-4·N elements, each within one admission step
-   of its segment, and relative L2 within 1e-4).
+   of its segment, and relative L2 within 1e-4).  The same for
+   mamba2-130m at the JAX CLI's 4-layer cut (f32 free-running, int8 each
+   round from the CPU's state).  Three dense train steps
+   (``launch.steps.make_train_step``) of every dense registry entry on
+   the card and the CPU (minicpm-2b with AdamW, WSD and grad_accum 2;
+   smollm-135m also with grad_accum 2 and bf16 momentum): losses rtol
+   1e-3, SGD's weights rtol 1e-3 / atol 1e-4; AdamW's first step moves
+   each weight by the rate times the sign of its gradient, so a weight
+   whose gradient is at the f32 noise may move the other way on each
+   device, and every later gradient then differs by more than the noise:
+   each AdamW step is also taken on the card from the CPU's state and
+   held at rtol 1e-3 / atol 1e-4 wherever the CPU's gradient lies above
+   the noise (1e-5 of its leaf's largest), and the free-running weights
+   above the first step's noise within 1e-3 of the update in relative
+   L2.  A
+   per-round ``--agg-engine tree`` round on the card against the CPU's
+   (rtol 1e-3 / atol 1e-4) and against the card's flat round (rtol 1e-4
+   / atol 1e-5), and a ``use_kernel=False`` round on the card: the kernel
+   round's global at rtol 1e-4 / atol 1e-5 and no kernel launched.
 4. Drives the main path — ``launch.train.run_fl`` with the CLI defaults
    (smollm-135m at full width and depth, 16 clients at participation 0.5,
    batch 8, sequence 64, 2 local steps, fedfa, cls) — for 2 rounds, with
    every kernel's launch count set to 0 just before and read just after;
    fails unless the losses are finite and every kernel of the path ran.
    Then the same with ``--update-dtype int8`` and with ``bf16``, each its
-   own path with its own counts.
+   own path with its own counts.  Every kernel must have run exactly its
+   launches by shape (``fl_expected_launches``).  Then FL training of
+   mamba2-130m at full size the same way, at f32 and int8, the first
+   round's arguments of every aggregation wrapper recorded (in host
+   memory) for step 9, with the first 2 ``ssd_intra_chunk`` calls of
+   each shape; ``ssd_intra_chunk`` runs in the evaluation's forwards
+   only (training takes the plain chunked SSD); the round and
+   its aggregation timed; then ``run_dense`` of smollm-135m at full size
+   (batch 8 x 64): finite losses, no kernel, ms a step, peak memory.
    Then the async driver: the card-vs-CPU check at the 4-layer size (the
    skewed trace of the async tests: the last client of each cohort
    arrives after 40, the others after 1 + (i mod 3); capacity 4, merge_k
@@ -84,9 +110,15 @@
    beside each shape are the wrappers' counts by shape on the main path);
    ``flash_attention`` also against the 3xTF32 emulation of its f32 route
    (within 1e-5), at the JAX package's sweep of shapes and masks and on a
-   ragged shape, and refusing inputs that need a gradient; times the
-   kernel, the plain version and, where one PyTorch call computes the same
-   function, that call.
+   ragged shape, and refusing inputs that need a gradient; the
+   aggregation kernels also on the arguments mamba2-130m's path passed
+   them (``ssd_intra_chunk`` on the evaluation's inputs of each shape,
+   half of every chunk padding, at the serving tolerance), and on each
+   of that path's rows longer than 2^18 ``row_trimmed_stats`` with
+   ``use_kernel=False`` launches no kernel and gives the kernels'
+   thresholds bit for bit; times the kernel, the plain version and,
+   where one PyTorch call computes the same function, that call.  Every phase that reads peak
+   memory collects Python's garbage first.
 10. Prints the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure exits non-zero before the last line.  Without CUDA, or without
@@ -94,6 +126,7 @@ the repository around it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -143,8 +176,17 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def small_reference_check() -> None:
-    """Two resident rounds at the 4-layer size on the card and on the CPU."""
+def collect_garbage() -> None:
+    """Free what earlier phases left in reference cycles (engines,
+    closures) before a phase measures its peak memory: Python frees cycles
+    only when its collector runs, and until then their dead tensors count
+    in the next phase's peak."""
+    gc.collect()
+
+
+def small_reference_check(arch: str = "smollm-135m") -> None:
+    """Two resident rounds of ``arch`` at the 4-layer size on the card and
+    on the CPU."""
     from repro_torch.core import flat
     from repro_torch.core.round import run_rounds
     from repro_torch.core.server import FLConfig, make_client_specs
@@ -153,7 +195,7 @@ def small_reference_check() -> None:
     from repro_torch.models.model import init_params
     from repro_torch.tree import tree_map
 
-    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=False)
+    cfg = train.fl_config(arch, "cls", 10, full_size=False)
     specs = make_client_specs(cfg, 4, archs=train.client_arch_pool(cfg, "both"),
                               malicious_frac=0.25, seed=0)
     parts = partition.iid_partition(4, 10, seed=0)
@@ -174,7 +216,8 @@ def small_reference_check() -> None:
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-3)
     np.testing.assert_allclose(out["cuda"][0].numpy(), out["cpu"][0].numpy(),
                                rtol=1e-3, atol=1e-4)
-    log(f"small check: cuda losses {out['cuda'][1]} cpu {out['cpu'][1]}")
+    log(f"small {arch} check: cuda losses {out['cuda'][1]} cpu "
+        f"{out['cpu'][1]}")
 
 
 def round_close(got, want, steps, what: str) -> None:
@@ -190,9 +233,11 @@ def round_close(got, want, steps, what: str) -> None:
           and rel <= 1e-4, f"{what} differs past the flip allowance")
 
 
-def small_quantized_check(update_dtype: str) -> None:
-    """Two quantized resident rounds at the 4-layer size on the card and on
-    the CPU, each card round started from the CPU's global and state."""
+def small_quantized_check(update_dtype: str,
+                          arch: str = "smollm-135m") -> None:
+    """Two quantized resident rounds of ``arch`` at the 4-layer size on the
+    card and on the CPU, each card round started from the CPU's global and
+    state."""
     from repro_torch.core import flat
     from repro_torch.core.round import ResidentDriver, default_perms
     from repro_torch.core.server import FLConfig, make_client_specs
@@ -200,7 +245,7 @@ def small_quantized_check(update_dtype: str) -> None:
     from repro_torch.launch import train
     from repro_torch.models.model import init_params
 
-    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=False)
+    cfg = train.fl_config(arch, "cls", 10, full_size=False)
     specs = make_client_specs(cfg, 4, archs=train.client_arch_pool(cfg, "both"),
                               malicious_frac=0.25, seed=0)
     parts = partition.iid_partition(4, 10, seed=0)
@@ -237,8 +282,8 @@ def small_quantized_check(update_dtype: str) -> None:
                 0, row_of, g["cpu"].abs(), "amax")
             steps = (2.0 ** (torch.floor(torch.log2(seg_max)) - 7))[row_of]
         round_close(g["cuda"].cpu().numpy(), want, steps.numpy(),
-                    f"small {update_dtype} check, round {r}")
-        log(f"small {update_dtype} check round {r}: losses {loss}")
+                    f"small {arch} {update_dtype} check, round {r}")
+        log(f"small {arch} {update_dtype} check round {r}: losses {loss}")
 
 
 ASYNC_SKEW = dict(capacity=4, merge_k=2, staleness_max=1)
@@ -381,6 +426,7 @@ def async_path(kernels, update_dtype: str, ckpt=None) -> dict:
 
     for k in kernels:
         k.reset()
+    collect_garbage()
     torch.cuda.reset_peak_memory_stats()
     async_round.AsyncEngine = Recorded
     t0 = time.perf_counter()
@@ -470,58 +516,379 @@ def checkpoint_path(eng, prefix: str) -> dict:
             "save_s": save_s, "restore_s": restore_s}
 
 
-def main_path(kernels, update_dtype: str, path_kernels) -> dict:
-    """The CLI defaults at full size for 2 rounds at ``update_dtype``, with
-    every launch count reset just before; returns the history, with each
-    kernel's launches (``launches``, and by shape where its wrapper names
-    one: ``by_shape``) and copies of the arguments of the first round's
-    ``quantile_fused`` calls (``quantile_calls``)."""
-    from repro_torch.kernels.fedfa_quantile import ops
-    from repro_torch.launch import train
-    _, single, _ = main_path_shapes(8)
-    calls, wrapper = [], ops.quantile_fused
+def recording(module, name: str, limit: int, calls: list, to=None,
+              key=None):
+    """Patch ``module.name`` to keep copies of the positional arguments of
+    its first ``limit`` calls in ``calls`` (on device ``to``, or where they
+    are), or, with ``key``, of its first ``limit`` calls for each value of
+    ``key(*args)``; returns the original, for the caller to put back."""
+    orig = getattr(module, name)
+    seen: dict = {}
 
-    def recording(rows, q, scale=None):
-        if len(calls) < sum(single.values()):
-            calls.append(tuple(None if a is None else a.clone()
-                               for a in (rows, q, scale)))
-        return wrapper(rows, q, scale)
+    def rec(*a, **kw):
+        k = None if key is None else key(*a)
+        if seen.get(k, 0) < limit:
+            seen[k] = seen.get(k, 0) + 1
+            calls.append(tuple(
+                x.to(to, copy=True) if isinstance(x, torch.Tensor) and to
+                else x.clone() if isinstance(x, torch.Tensor) else x
+                for x in a))
+        return orig(*a, **kw)
+    setattr(module, name, rec)
+    return orig
+
+
+def main_path(kernels, update_dtype: str, path_kernels,
+              arch: str = "smollm-135m", record_all: bool = False) -> dict:
+    """The CLI defaults at full size (``arch``: smollm-135m, the main path,
+    or mamba2-130m) for 2 rounds at ``update_dtype``, with every launch
+    count reset just before; returns the history, with each kernel's
+    launches (``launches``, and by shape where its wrapper names one:
+    ``by_shape``) and copies of the arguments of the first round's
+    ``quantile_fused`` calls (``quantile_calls``).  With ``record_all``,
+    also (in host memory, so that the path's peak is its own) the first
+    round's multilevel quantiles, ``scaled_accum`` and ``quant_accum``
+    calls, and the first ``SSD_PER_SHAPE`` ``ssd_intra_chunk`` calls of
+    each shape (``calls``)."""
+    from repro_torch.kernels.fedfa_agg import ops as agg_ops
+    from repro_torch.kernels.fedfa_quantile import multilevel, ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import train
+    _, single, multi = main_path_shapes(8, arch)
+    quantized = update_dtype != "f32"
+    spec = {"quantile_fused": (ops, sum(single.values()), None, None)}
+    if record_all:
+        spec["row_trimmed_stats_multilevel"] = (multilevel,
+                                                sum(multi.values()), "cpu",
+                                                None)
+        spec["scaled_accum"] = (agg_ops, 1 if quantized else 2, "cpu", None)
+        if quantized:
+            spec["quant_accum"] = (agg_ops, 1, "cpu", None)
+        spec["ssd_intra_chunk"] = (ssd_ops, SSD_PER_SHAPE, "cpu",
+                                   lambda x, *_: tuple(x.shape))
+    calls = {name: [] for name in spec}
 
     for k in kernels:
         k.reset()
+    collect_garbage()
     torch.cuda.reset_peak_memory_stats()
-    ops.quantile_fused = recording
+    origs = {name: recording(mod, name, limit, calls[name], to, key)
+             for name, (mod, limit, to, key) in spec.items()}
     t0 = time.perf_counter()
     try:
-        hist = train.run_fl("smollm-135m", 2, 16, strategy="fedfa", batch=8,
+        hist = train.run_fl(arch, 2, 16, strategy="fedfa", batch=8,
                             seq_len=64, participation=0.5, local_steps=2,
                             lr=0.05, task="cls", eval_every=5,
                             driver="resident", update_dtype=update_dtype,
                             full_size=True, device="cuda")
         torch.cuda.synchronize()
     finally:
-        ops.quantile_fused = wrapper
+        for name, (mod, *_) in spec.items():
+            setattr(mod, name, origs[name])
     hist["seconds"] = time.perf_counter() - t0
     hist["launches"] = {k.symbol: k.launches for k in kernels}
     hist["by_shape"] = {k.symbol: dict(k.by_shape) for k in kernels}
-    hist["quantile_calls"] = calls
+    hist["quantile_calls"] = calls["quantile_fused"]
+    hist["calls"] = calls
     hist["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     check(len(hist["round_loss"]) == 2
           and bool(np.all(np.isfinite(hist["round_loss"]))),
-          f"{update_dtype} main path losses {hist['round_loss']}")
+          f"{arch} {update_dtype} path losses {hist['round_loss']}")
     check(all(k.launches > 0 for k in path_kernels),
-          f"a kernel of the {update_dtype} main path never ran: "
+          f"a kernel of the {arch} {update_dtype} path never ran: "
           f"{hist['launches']}")
     return hist
 
 
-def round_timing(update_dtype: str):
+# ssd_intra_chunk calls of each shape that main_path(record_all=True) keeps
+SSD_PER_SHAPE = 2
+
+# run_fl's evaluation: one global forward of 256 sequences and one of 64
+# for each of the first 4 clients, at every eval boundary (rounds 0 and 1
+# of a 2-round run with eval_every 5)
+EVAL_GLOBAL, EVAL_LOCAL, EVAL_CLIENTS, EVALS = 256, 64, 4, 2
+
+
+def fl_expected_launches(arch: str, update_dtype: str, rounds: int = 2,
+                         m: int = 8, seq: int = 64) -> dict:
+    """Each kernel's launches by shape on ``main_path`` at full size:
+    every single-pass leaf one ``quantile_fused`` and every multilevel leaf
+    four ``hist_level`` levels a round; ``scaled_accum`` twice a round at
+    f32 (M' and Γ) and once quantized, where ``quant_accum`` takes M'; for
+    an SSD model ``ssd_intra_chunk`` once a layer in each forward without
+    a gradient — the evaluation's; training takes the plain chunked SSD."""
+    from repro_torch.configs import get_arch
+    _, single, multi = main_path_shapes(m, arch)
+    q = update_dtype != "f32"
+    want = {
+        "quantile_fused": {sh: rounds * n for sh, n in single.items()},
+        "hist_level": {(R, L, 24 - 8 * j): rounds * n
+                       for (R, L), n in multi.items() for j in range(4)},
+        "scaled_accum": rounds * (1 if q else 2),
+        "quant_accum": rounds if q else 0,
+        "trimmed_sumsq": 0, "flash_attention": 0, "ssd_intra_chunk": {}}
+    cfg = get_arch(arch)
+    if cfg.ssm is not None:
+        s, nc = cfg.ssm, -(-seq // cfg.ssm.chunk)
+        nh = s.n_heads(cfg.d_model)
+        for b, n in ((EVAL_GLOBAL, 1), (EVAL_LOCAL, EVAL_CLIENTS)):
+            want["ssd_intra_chunk"][(b * nc, s.chunk, nh, s.head_dim,
+                                     s.d_state)] = EVALS * n * cfg.n_layers
+    return want
+
+
+def check_fl_launches(hist: dict, arch: str, update_dtype: str) -> None:
+    """Fail unless every kernel ran exactly its expected launches (by shape
+    where the wrapper names one) on the path."""
+    want = fl_expected_launches(arch, update_dtype)
+    for sym, w in want.items():
+        got = hist["by_shape"][sym] if isinstance(w, dict) \
+            else hist["launches"][sym]
+        total = sum(w.values()) if isinstance(w, dict) else w
+        check(got == w and hist["launches"][sym] == total,
+              f"{arch} {update_dtype}: {sym} launched {got} "
+              f"({hist['launches'][sym]} in all), expected {w}")
+
+
+# dense train-step cases on the card against the CPU: (arch, overrides) —
+# every dense registry entry at its reduced() cut (the paper transformer at
+# its published size: its cut cannot run), minicpm-2b through AdamW's
+# generic accumulation and smollm-135m through SGD's fused momentum
+DENSE_CASES = [("smollm-135m", {}), ("tinyllama-1.1b", {}),
+               ("codeqwen1.5-7b", {}), ("fedfa-paper-transformer", {}),
+               ("minicpm-2b", {"grad_accum": 2}),
+               ("smollm-135m", {"grad_accum": 2,
+                                "momentum_dtype": "bfloat16"})]
+
+
+def flat_np(tree) -> np.ndarray:
+    from repro_torch.tree import leaves
+    return np.concatenate([x.detach().float().cpu().numpy().ravel()
+                           for x in leaves(tree)])
+
+
+def above_noise(grads) -> np.ndarray:
+    """Where a gradient tree lies above the f32 summation noise of a
+    backward pass: |g| > 1e-5 of its leaf's largest magnitude
+    (tests/test_torch_dense.py)."""
+    from repro_torch.tree import leaves
+    out = []
+    for g in leaves(grads):
+        g = g.abs().float().cpu().numpy().ravel()
+        out.append(g > 1e-5 * g.max())
+    return np.concatenate(out)
+
+
+def adamw_step_close(got, want, grads, what: str) -> None:
+    """One AdamW step taken on the card from the CPU's state: rtol 1e-3 /
+    atol 1e-4 on every element whose CPU gradient lies above the noise.
+    AdamW's first step moves each element by the rate times the sign of
+    its gradient, so one whose gradient is at the noise may move the other
+    way on each device (tests/test_torch_dense.py)."""
+    keep = above_noise(grads)
+    d = np.abs(got - want)
+    out = d > 1e-4 + 1e-3 * np.abs(want)
+    log(f"{what}: {int(out.sum())} of {got.size} elements past rtol 1e-3 / "
+        f"atol 1e-4, {int((out & keep).sum())} of them above the noise")
+    check(not (out & keep).any(), f"{what} differs above the noise")
+
+
+def adamw_update_close(got, want, start, keep, what: str) -> None:
+    """Free-running AdamW steps: on the elements whose first gradient lies
+    above the noise (``keep``), the difference within 1e-3 of the update
+    in relative L2."""
+    rel = float(np.linalg.norm((got - want)[keep])
+                / np.linalg.norm(want - start))
+    log(f"{what}: relative L2 of the update above the noise {rel:.3g}")
+    check(rel <= 1e-3, f"{what} differs past 1e-3 of the update")
+
+
+def small_dense_check() -> dict:
+    """Three train steps (``launch.steps.make_train_step``, steps 1-3: WSD's
+    warmup makes step 0's rate 0) of each ``DENSE_CASES`` entry on the card
+    and on the CPU from the same weights and tokens (batch 4, sequence
+    16): losses at rtol 1e-3, SGD's parameters at rtol 1e-3 / atol 1e-4;
+    with AdamW, each step also taken on the card from the CPU's state
+    (``adamw_step_close``) and the free-running steps held by
+    ``adamw_update_close``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_params, loss_and_grad
+    from repro_torch.optim import init_opt
+    from repro_torch.tree import tree_map
+    out = {}
+    for arch, over in DENSE_CASES:
+        cfg = get_arch(arch)
+        if arch != "fedfa-paper-transformer":
+            cfg = cfg.reduced()
+        cfg = cfg.replace(**over)
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        data = synthetic.lm_stream(cfg.vocab_size, 12, 16, seed=2)
+        mdt = torch.bfloat16 if cfg.momentum_dtype == "bfloat16" \
+            else torch.float32
+        adam = cfg.optimizer == "adamw"
+        fn = steps.make_train_step(cfg, total_steps=4)
+        name = arch + "".join(f" {k}={v}" for k, v in over.items())
+        res, cpu_steps = {}, []
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            st = init_opt(p, cfg.optimizer, momentum_dtype=mdt)
+            losses = []
+            for s in range(1, 4):
+                tok = torch.as_tensor(data[(s - 1) * 4:s * 4],
+                                      dtype=torch.int64, device=dev)
+                if adam and dev == "cpu":   # the state and the gradient
+                    cpu_steps.append((p, st, tok, loss_and_grad(
+                        p, cfg, {"tokens": tok}, task="lm")[1]))
+                p, st, loss = fn(p, st, {"tokens": tok}, s)
+                if adam and dev == "cpu":
+                    cpu_steps[-1] += (p,)
+                losses.append(float(loss))
+            res[dev] = (flat_np(p), losses)
+        np.testing.assert_allclose(res["cuda"][1], res["cpu"][1], rtol=1e-3,
+                                   err_msg=name)
+        if adam:
+            to_card = lambda t: tree_map(lambda x: x.cuda(), t)
+            for s, (p0, st0, tok, g, p1) in enumerate(cpu_steps, 1):
+                forced, _, _ = fn(to_card(p0), {"step": st0["step"],
+                                                "m": to_card(st0["m"]),
+                                                "v": to_card(st0["v"])},
+                                  {"tokens": tok.cuda()}, s)
+                adamw_step_close(flat_np(forced), flat_np(p1), g,
+                                 f"dense {name} step {s} from the CPU's state")
+            adamw_update_close(res["cuda"][0], res["cpu"][0], flat_np(params),
+                               above_noise(cpu_steps[0][3]), f"dense {name}")
+        else:
+            np.testing.assert_allclose(res["cuda"][0], res["cpu"][0],
+                                       rtol=1e-3, atol=1e-4, err_msg=name)
+        out[name] = {"cuda": res["cuda"][1], "cpu": res["cpu"][1]}
+    return out
+
+
+def small_tree_check(kernels) -> dict:
+    """A per-round round (``server.fl_round``) of the 4-layer smollm-135m
+    with ``agg_engine="tree"`` on the card against the same on the CPU
+    (losses rtol 1e-3, global rtol 1e-3 / atol 1e-4) and against the
+    card's flat engine on the same inputs (rtol 1e-4 / atol 1e-5, the
+    oracle's tolerance); then the flat round with ``use_kernel=False`` on
+    the card: the kernel round's global at rtol 1e-4 / atol 1e-5 (the
+    plain versions sum in another order), and no kernel launched."""
+    from repro_torch.core import flat
+    from repro_torch.core.round import default_perms
+    from repro_torch.core.server import FLConfig, fl_round, make_client_specs
+    from repro_torch.data import partition, pipeline, synthetic
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=False)
+    specs = make_client_specs(cfg, 4, archs=train.client_arch_pool(cfg, "both"),
+                              malicious_frac=0.25, seed=0)
+    parts = partition.iid_partition(4, 10, seed=0)
+    profiles = synthetic.make_class_profiles(10, cfg.vocab_size, seed=0)
+    b = pipeline.round_batches_cls(parts, list(range(4)), 10, cfg.vocab_size,
+                                   local_steps=2, batch=2, seq_len=16,
+                                   profiles=profiles, seed=100)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    perms = default_perms(0)(0, 4, 2 * 2)
+    index = flat.FlatIndex(params)
+    out, launches = {}, {}
+    for name, dev, kw in (("tree-cuda", "cuda", {"agg_engine": "tree"}),
+                          ("tree-cpu", "cpu", {"agg_engine": "tree"}),
+                          ("flat-cuda", "cuda", {}),
+                          ("plain-cuda", "cuda", {"use_kernel": False})):
+        fl = FLConfig(local_steps=2, lr=0.05, strategy="fedfa", task="cls",
+                      **kw)
+        for k in kernels:
+            k.reset()
+        p, loss = fl_round(tree_map(lambda t: t.to(dev), params), cfg, fl,
+                           specs, {k: torch.as_tensor(v, dtype=torch.int64,
+                                                      device=dev)
+                                   for k, v in b.items()},
+                           perms=perms.to(dev))
+        torch.cuda.synchronize()
+        launches[name] = {k.symbol: k.launches for k in kernels}
+        out[name] = (flat.flatten(index, tree_map(
+            lambda t: t.cpu(), p)).numpy(), float(loss))
+    np.testing.assert_allclose(out["tree-cuda"][1], out["tree-cpu"][1],
+                               rtol=1e-3)
+    np.testing.assert_allclose(out["tree-cuda"][0], out["tree-cpu"][0],
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(out["tree-cuda"][0], out["flat-cuda"][0],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(out["plain-cuda"][0], out["flat-cuda"][0],
+                               rtol=1e-4, atol=1e-5)
+    check(launches["flat-cuda"]["scaled_accum"] == 2,
+          f"the card's flat round: {launches['flat-cuda']}")
+    for name in ("tree-cuda", "plain-cuda"):
+        check(not any(launches[name].values()),
+              f"{name} launched kernels: {launches[name]}")
+    log(f"small tree check: losses { {k: v[1] for k, v in out.items()} }")
+    return {k: v[1] for k, v in out.items()}
+
+
+def dense_path(kernels, steps: int = 10) -> dict:
+    """``run_dense("smollm-135m", full_size=True)`` at batch 8 x sequence
+    64 for 1 + ``steps`` steps (counts reset just before): finite losses,
+    no kernel launched (dense attention at 64 tokens), peak memory, and ms
+    per step on the host clock as the difference between that run and a
+    1-step run (both after a 1-step run that warms the libraries up), so
+    that neither the set-up (weights drawn on the CPU) nor the first step
+    counts."""
+    from repro_torch.launch import train
+
+    def run(n):
+        t0 = time.perf_counter()
+        res = train.run_dense("smollm-135m", n, 8, 64, full_size=True,
+                              device="cuda")
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    run(1)
+    _, one = run(1)
+    for k in kernels:
+        k.reset()
+    collect_garbage()
+    torch.cuda.reset_peak_memory_stats()
+    res, seconds = run(1 + steps)
+    launches = {k.symbol: k.launches for k in kernels}
+    check(len(res["losses"]) == 1 + steps
+          and bool(np.all(np.isfinite(res["losses"]))),
+          f"dense path losses {res['losses']}")
+    check(not any(launches.values()), f"the dense path launched {launches}")
+    return {"arch": "smollm-135m", "steps": 1 + steps, "batch": 8,
+            "seq_len": 64, "losses": res["losses"],
+            "ms_per_step": (seconds - one) / steps * 1e3,
+            "run_s": seconds, "one_step_run_s": one,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches,
+            "minicpm-2b_full_size": dense_state_estimate("minicpm-2b")}
+
+
+def dense_state_estimate(arch: str) -> dict:
+    """What a full-size dense AdamW step of ``arch`` holds at its peak,
+    counted from the parameter shapes (nothing allocated): f32 params,
+    grads, m and v, and the update's new params, m and v before the old
+    trees are freed — seven parameter-sized f32 trees, activations
+    aside."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import _is_shape, param_shapes
+    from repro_torch.tree import leaves_with_path
+    n = sum(int(np.prod(sh)) for _, sh in leaves_with_path(
+        param_shapes(get_arch(arch)), is_leaf=_is_shape))
+    return {"params": n, "trees_gb": 7 * 4 * n / 1e9}
+
+
+def round_timing(update_dtype: str, arch: str = "smollm-135m"):
     """Local training, admission and aggregation of one full-size resident
-    round (CUDA events), and the round's peak memory."""
+    round of ``arch`` (CUDA events), and the round's peak memory."""
     from repro_torch.launch import profile
-    r = profile.full_round(8, device="cuda", update_dtype=update_dtype)
-    out = {"update_dtype": update_dtype, "n_params": r["index"].n, "m": 8,
-           **profile.breakdown(r)}
+    collect_garbage()
+    r = profile.full_round(8, device="cuda", update_dtype=update_dtype,
+                           arch=arch)
+    out = {"arch": arch, "update_dtype": update_dtype,
+           "n_params": r["index"].n, "m": 8, **profile.breakdown(r)}
     return out, r["g_buf"]
 
 
@@ -542,28 +909,29 @@ def trimmed_norm_path(kernels, g: torch.Tensor) -> dict:
     return {"norm": float(norm), "launches": launches}
 
 
-def model_index():
-    """The FlatIndex of full-size smollm-135m, from shapes alone."""
+def model_index(arch: str = "smollm-135m"):
+    """The FlatIndex of full-size ``arch``, from shapes alone."""
     from repro_torch.core import flat
     from repro_torch.launch import train
     from repro_torch.models.transformer import _is_shape, param_shapes
     from repro_torch.tree import from_paths, leaves_with_path
-    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=True)
+    cfg = train.fl_config(arch, "cls", 10, full_size=True)
     leaves = list(leaves_with_path(param_shapes(cfg), is_leaf=_is_shape))
     return flat.FlatIndex(from_paths(
         [p for p, _ in leaves],
         [torch.empty(s, device="meta") for _, s in leaves]))
 
 
-def main_path_shapes(m: int):
-    """(N, single-pass row shapes, multilevel row shapes) of the main path:
-    each leaf's rows (m·lead, rest), split by the JAX dispatch rule; each as
-    {shape: number of leaves}, smallest first."""
+def main_path_shapes(m: int, arch: str = "smollm-135m"):
+    """(N, single-pass row shapes, multilevel row shapes) of ``arch``'s FL
+    path at full size (smollm-135m's is the main path): each leaf's rows
+    (m·lead, rest), split by the JAX dispatch rule; each as {shape: number
+    of leaves}, smallest first."""
     from repro_torch.kernels.fedfa_quantile.ops import _LANES, _SINGLE_PASS_ELEMS
     from repro_torch.launch import train
     from repro_torch.models.transformer import _is_shape, param_shapes
     from repro_torch.tree import leaves_with_path
-    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=True)
+    cfg = train.fl_config(arch, "cls", 10, full_size=True)
     leaves = list(leaves_with_path(param_shapes(cfg), is_leaf=_is_shape))
     n = sum(int(np.prod(s)) for _, s in leaves)
     rows = [(m * s[0], int(np.prod(s[1:]))) if path[0] == "stages"
@@ -614,6 +982,24 @@ def quantile_rows(dtype: str, kind: str, R: int, L: int, gen):
 
 
 BYTES = {"f32": 4, "int8": 1, "bf16": 2}
+
+
+def quantile_check(rows, q, s, what: str) -> float:
+    """``quantile_fused`` against its plain version on these rows, called
+    twice: thresholds bit-equal, Σx² at rtol 1e-5, both calls the same
+    bits; returns Σx²'s largest difference."""
+    from repro_torch.kernels.fedfa_quantile import ops, ref
+    t, ss = ops.quantile_fused(rows, q, s)
+    t2, ss2 = ops.quantile_fused(rows, q, s)
+    pt, pss = ref.row_trimmed_stats_ref(ref.dequantize_rows(rows, s), q)
+    check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
+          f"{what}: thresholds differ")
+    torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0,
+                               msg=f"{what}: sums differ")
+    check(torch.equal(t.view(torch.int32), t2.view(torch.int32))
+          and torch.equal(ss.view(torch.int32), ss2.view(torch.int32)),
+          f"{what}: two calls differ")
+    return float((ss - pss).abs().max())
 
 
 def kernel_checks(launches: dict, shapes: dict, quantile_calls: dict) -> list:
@@ -711,19 +1097,6 @@ def kernel_checks(launches: dict, shapes: dict, quantile_calls: dict) -> list:
     # tests' adversarial rows, each call twice with the same bits; then the
     # rows the main path's first round passed it, timed call by call.  The
     # f32 rows of the largest shape feed trimmed_sumsq below.
-    def quantile_check(rows, q, s, what):
-        t, ss = ops.quantile_fused(rows, q, s)
-        t2, ss2 = ops.quantile_fused(rows, q, s)
-        pt, pss = ref.row_trimmed_stats_ref(ref.dequantize_rows(rows, s), q)
-        check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
-              f"{what}: thresholds differ")
-        torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0,
-                                   msg=f"{what}: sums differ")
-        check(torch.equal(t.view(torch.int32), t2.view(torch.int32))
-              and torch.equal(ss.view(torch.int32), ss2.view(torch.int32)),
-              f"{what}: two calls differ")
-        return float((ss - pss).abs().max())
-
     for dtype in ("f32", "int8", "bf16"):
         qerr = 0.0
         cases = [(R, L, "normal", "path")
@@ -747,7 +1120,7 @@ def kernel_checks(launches: dict, shapes: dict, quantile_calls: dict) -> list:
               f"quantile_fused {dtype}: the first round's calls were at "
               f"{[tuple(c[0].shape) for c in calls]}, expected {single}")
         timed = []
-        for rows, q, s in calls:
+        for rows, q, s, *_ in calls:
             what = f"quantile_fused {dtype} main-path rows {tuple(rows.shape)}"
             qerr = max(qerr, quantile_check(rows, q, s, what))
             R, L = rows.shape
@@ -849,19 +1222,85 @@ def kernel_checks(launches: dict, shapes: dict, quantile_calls: dict) -> list:
     return out
 
 
+def hist_level_rows(x, s, q, dtype: str, by_shape: dict, total: dict,
+                    **extra) -> list:
+    """``hist_level`` on the rows x (R, L) (per-row scales ``s`` if
+    quantized) with levels q (R, 1), at each of the four levels with the
+    prefixes the plain level loop finds for them: counts equal to the plain
+    version's, Σx² within rtol 1e-5; at the second level also with the
+    ceil path's prefix moved to the next bin, so that the two planes
+    differ; then the whole multilevel quantile against the sorting plain
+    version, thresholds bit-equal.  Each level is timed beside its
+    launches (``by_shape``, counted by shape over the path's 2 rounds),
+    and ``total`` sums launches × time over a round."""
+    from repro_torch.kernels.fedfa_quantile import multilevel, ref
+    R, L = x.shape
+    sc = None if s is None else s[:, None].contiguous()
+    seg1 = torch.zeros(L, dtype=torch.int32, device="cuda")
+    seg_len = torch.full((1,), L, dtype=torch.int64, device="cuda")
+    levels = multilevel.level_prefixes(x, seg1, seg_len, q, sc)
+    out = []
+    for j, (shift, hi) in enumerate(levels):
+        cases = [hi]
+        if j == 1:
+            moved = hi.clone()
+            moved[:, 1] += 1
+            cases.append(moved)
+        for h in cases:
+            cnt, sq = multilevel.hist_level(x, seg1, h, shift, sc)
+            pcnt, psq = ref.hist_level_ref(x, seg1, h, shift, sc)
+            what = (f"hist_level {dtype} {(R, L)} level {j}"
+                    + ("" if h is hi else ", planes differing"))
+            check(torch.equal(cnt, pcnt), f"{what}: counts differ")
+            torch.testing.assert_close(sq, psq, rtol=1e-5, atol=0,
+                                       msg=f"{what}: sums differ")
+            err = float((sq - psq).abs().max())
+            total["err"] = max(total["err"], err)
+            del cnt, sq, pcnt, psq
+        b, by = bound(R * L * BYTES[dtype] + (L + R * 2) * 4
+                      + (0 if sc is None else R * 4)
+                      + R * 2 * 256 * 8, R * L)
+        ms = time_ms(lambda: multilevel.hist_level(x, seg1, hi, shift, sc),
+                     10)
+        plain = time_ms(lambda: ref.hist_level_ref(x, seg1, hi, shift, sc),
+                        2)
+        n = by_shape.get((R, L, shift), 0)
+        for key, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
+            total[key] += n / 2 * val       # 2 rounds
+        out.append({
+            "name": "hist_level", "dtype": dtype, **extra, "shape": [R, L],
+            "level": j, "route": "cuda",
+            "source": "src/repro_torch/csrc/hist_level.cu",
+            "replaces": "src/repro/kernels/fedfa_quantile/multilevel.py:107",
+            "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": None})
+    t, ss = multilevel.row_trimmed_stats_multilevel(x, q[:, 0], s)
+    pt, pss = ref.row_trimmed_stats_ref(ref.dequantize_rows(x, s), q[:, 0])
+    check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
+          f"multilevel {dtype} thresholds differ at {(R, L)}")
+    torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0)
+    return out
+
+
+def hist_round_row(dtype: str, launches: int, total: dict,
+                   **extra) -> dict:
+    """The round's ``hist_level`` row: launches × time over the 2 rounds."""
+    return {
+        "name": "hist_level", "dtype": dtype, **extra, "shape": "round",
+        "route": "cuda", "source": "src/repro_torch/csrc/hist_level.cu",
+        "replaces": "src/repro/kernels/fedfa_quantile/multilevel.py:107",
+        "launches": launches, "rounds": 2, "max_abs_err": total["err"],
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}
+
+
 def hist_checks(launches: dict, shapes: dict) -> list:
     """``hist_level`` at every multilevel row shape of the main path (wq/wo,
-    the FFN, the embedding; S = 1), f32 and quantized, at each of the four
-    levels with the prefixes the plain level loop finds for those rows:
-    counts equal to the plain version's, Σx² within rtol 1e-5; at the
-    second level also with the ceil path's prefix moved to the next bin, so
-    that the two planes differ; then the whole multilevel quantile against
-    the sorting plain version, thresholds bit-equal.  Each (shape, level) is
-    timed beside its launches on the main path (``shapes``, counted by
-    shape), and one row per dtype adds them up over a round (launches × time
-    against launches × bound, over the path's 2 rounds)."""
-    from repro_torch.kernels.fedfa_quantile import multilevel, ref
-
+    the FFN, the embedding; S = 1), f32 and quantized, on normal rows
+    (``hist_level_rows``), and the main path's launches by (rows, shift):
+    each leaf's 4 levels twice in its 2 rounds; one row per dtype adds the
+    levels up over a round (launches × time against launches × bound)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     _, _, multi = main_path_shapes(8)
     out = []
@@ -872,54 +1311,10 @@ def hist_checks(launches: dict, shapes: dict) -> list:
                 x, s = torch.randn((R, L), generator=gen, device="cuda"), None
             else:
                 x, s = quantized_rows(dtype, R, L, gen)
-            sc = None if s is None else s[:, None].contiguous()
-            seg1 = torch.zeros(L, dtype=torch.int32, device="cuda")
-            seg_len = torch.full((1,), L, dtype=torch.int64, device="cuda")
             q = 1.0 - 0.05 * torch.rand((R, 1), generator=gen, device="cuda")
-            levels = multilevel.level_prefixes(x, seg1, seg_len, q, sc)
-            for j, (shift, hi) in enumerate(levels):
-                cases = [hi]
-                if j == 1:
-                    moved = hi.clone()
-                    moved[:, 1] += 1
-                    cases.append(moved)
-                for h in cases:
-                    cnt, sq = multilevel.hist_level(x, seg1, h, shift, sc)
-                    pcnt, psq = ref.hist_level_ref(x, seg1, h, shift, sc)
-                    what = (f"hist_level {dtype} {(R, L)} level {j}"
-                            + ("" if h is hi else ", planes differing"))
-                    check(torch.equal(cnt, pcnt), f"{what}: counts differ")
-                    torch.testing.assert_close(sq, psq, rtol=1e-5, atol=0,
-                                               msg=f"{what}: sums differ")
-                    err = float((sq - psq).abs().max())
-                    total["err"] = max(total["err"], err)
-                b, by = bound(R * L * BYTES[dtype] + (L + R * 2) * 4
-                              + (0 if sc is None else R * 4)
-                              + R * 2 * 256 * 8, R * L)
-                ms = time_ms(lambda: multilevel.hist_level(x, seg1, hi, shift,
-                                                           sc), 10)
-                plain = time_ms(lambda: ref.hist_level_ref(x, seg1, hi, shift,
-                                                           sc), 2)
-                n = shapes[dtype]["hist_level"].get((R, L, shift), 0)
-                for key, val in (("ms", ms), ("plain_ms", plain),
-                                 ("bound_ms", b)):
-                    total[key] += n / 2 * val       # 2 rounds
-                out.append({
-                    "name": "hist_level", "dtype": dtype, "shape": [R, L],
-                    "level": j, "route": "cuda",
-                    "source": "src/repro_torch/csrc/hist_level.cu",
-                    "replaces": "src/repro/kernels/fedfa_quantile/"
-                                "multilevel.py:107",
-                    "launches": n,
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                    "bound_ms": b, "bound_by": by, "library_ms": None})
-            t, ss = multilevel.row_trimmed_stats_multilevel(x, q[:, 0], s)
-            pt, pss = ref.row_trimmed_stats_ref(ref.dequantize_rows(x, s),
-                                                q[:, 0])
-            check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
-                  f"multilevel {dtype} thresholds differ at {(R, L)}")
-            torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0)
-            del x, levels, pt, pss
+            out += hist_level_rows(x, s, q, dtype,
+                                   shapes[dtype]["hist_level"], total)
+            del x
         # the round: each multilevel leaf once per level
         by_shape = shapes[dtype]["hist_level"]
         check(sum(by_shape.values()) == launches[dtype]["hist_level"]
@@ -928,16 +1323,146 @@ def hist_checks(launches: dict, shapes: dict) -> list:
                                for j in range(4)},
               f"hist_level {dtype}: launches by (rows, shift) {by_shape} in "
               f"2 rounds, expected each leaf's 4 levels twice")
-        out.append({
-            "name": "hist_level", "dtype": dtype, "shape": "round",
-            "route": "cuda", "source": "src/repro_torch/csrc/hist_level.cu",
-            "replaces": "src/repro/kernels/fedfa_quantile/multilevel.py:107",
-            "launches": launches[dtype]["hist_level"], "rounds": 2,
-            "max_abs_err": total["err"],
-            "ms": total["ms"], "plain_ms": total["plain_ms"],
-            "bound_ms": total["bound_ms"], "bound_by": "bytes",
-            "library_ms": None})
+        out.append(hist_round_row(dtype, launches[dtype]["hist_level"],
+                                  total))
     return out
+
+
+def fl_path_kernel_rows(hist: dict, arch: str, dtype: str, kernels) -> list:
+    """Each kernel of ``arch``'s FL path held against its plain version on
+    the arguments that path passed it (recorded by
+    ``main_path(record_all=True)``) and timed there: ``scaled_accum`` (M'
+    and Γ; within 1e-5 of the summed magnitudes), ``quant_accum`` (int8),
+    ``quantile_fused`` per row shape (``quantile_check``), ``hist_level``
+    per (row shape, level) (``hist_level_rows``) and ``ssd_intra_chunk``
+    per shape (``ssd_row``), with the launches the path made.  On each
+    multilevel leaf's rows (longer than 2^18) the dispatching
+    ``row_trimmed_stats`` with ``use_kernel=False`` launches no kernel and
+    gives the kernels' thresholds bit for bit (Σx² at rtol 1e-5)."""
+    from repro_torch.kernels.fedfa_agg import ops as agg_ops
+    from repro_torch.kernels.fedfa_agg import ref as agg_ref
+    from repro_torch.kernels.fedfa_quantile import ops, ref
+    tag = {"path": f"{arch} fl"}
+    launches, by_shape, calls = hist["launches"], hist["by_shape"], \
+        hist["calls"]
+    out = []
+    for i, (x, w, mask, *_) in enumerate(calls["scaled_accum"]):
+        x, w, mask = x.cuda(), w.cuda(), mask.cuda()
+        m, n = x.shape
+        got = agg_ops.scaled_accum(x, w, mask)
+        want = agg_ref.scaled_accum_ref(x, w, mask)
+        mag = agg_ref.scaled_accum_ref(x.abs(), w.abs(), mask)
+        err = (got - want).abs()
+        # f32 rounds sum M' then Γ; quantized ones Γ alone (quant_accum
+        # takes M')
+        what = ("M'", "Γ")[i] if dtype == "f32" else "Γ"
+        check(bool((err <= 1e-5 * mag).all()),
+              f"scaled_accum on the {arch} path's {what} disagrees")
+        b, by = bound((m * n + m + 2 * n) * 4, 2 * m * n + n)
+        out.append({
+            "name": "scaled_accum", "dtype": dtype, **tag, "input": what,
+            "shape": [m, n], "route": "cuda",
+            "source": "src/repro_torch/csrc/scaled_accum.cu",
+            "replaces": "src/repro/kernels/fedfa_agg/kernel.py:71",
+            "launches": launches["scaled_accum"],
+            "max_abs_err": float(err.max()),
+            "ms": time_ms(lambda: agg_ops.scaled_accum(x, w, mask), 10),
+            "plain_ms": time_ms(lambda: agg_ref.scaled_accum_ref(x, w, mask),
+                                5),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": time_ms(lambda: torch.mv(x.t(), w) * mask, 5)})
+        del x, got, want, mag, err
+    for xq, wtab, seg, mask, *_ in calls.get("quant_accum", []):
+        xq, wtab, seg, mask = (t.cuda() for t in (xq, wtab, seg, mask))
+        m, n = xq.shape
+        got = agg_ops.quant_accum(xq, wtab, seg, mask)
+        want = agg_ref.quant_accum_ref(xq, wtab, seg, mask)
+        mag = agg_ref.quant_accum_ref(xq.abs(), wtab, seg, mask)
+        err = (got - want).abs()
+        check(bool((err <= 1e-5 * mag).all()),
+              f"quant_accum on the {arch} path disagrees")
+        b, by = bound(m * n * BYTES[dtype] + 12 * n + wtab.numel() * 4,
+                      2 * m * n + n)
+        out.append({
+            "name": "quant_accum", "dtype": dtype, **tag, "shape": [m, n],
+            "route": "cuda", "source": "src/repro_torch/csrc/quant_accum.cu",
+            "replaces": "src/repro/kernels/fedfa_agg/kernel.py:117",
+            "launches": launches["quant_accum"],
+            "max_abs_err": float(err.max()),
+            "ms": time_ms(lambda: agg_ops.quant_accum(xq, wtab, seg, mask),
+                          10),
+            "plain_ms": time_ms(
+                lambda: agg_ref.quant_accum_ref(xq, wtab, seg, mask), 3),
+            "bound_ms": b, "bound_by": by, "library_ms": None})
+        del xq, got, want, mag, err
+    # quantile_fused: each row shape's calls checked, the first one timed
+    timed = {}
+    for rows, q, s, *_ in calls["quantile_fused"]:
+        R, L = rows.shape
+        err = quantile_check(rows, q, s, f"quantile_fused {dtype} {arch} "
+                                         f"path rows {(R, L)}")
+        if (R, L) not in timed:
+            b, by = bound(R * L * rows.element_size()
+                          + (3 + (s is not None)) * R * 4, R * L)
+            timed[R, L] = {
+                "name": "quantile_fused", "dtype": dtype, **tag,
+                "shape": [R, L], "route": "cuda",
+                "source": "src/repro_torch/csrc/quantile_fused.cu",
+                "replaces": "src/repro/kernels/fedfa_quantile/kernel.py:85",
+                "launches": by_shape["quantile_fused"].get((R, L), 0),
+                "max_abs_err": err,
+                "ms": time_ms(lambda: ops.quantile_fused(rows, q, s), 10),
+                "plain_ms": time_ms(lambda: ref.row_trimmed_stats_ref(
+                    ref.dequantize_rows(rows, s), q), 5),
+                "bound_ms": b, "bound_by": by, "library_ms": None}
+        timed[R, L]["max_abs_err"] = max(timed[R, L]["max_abs_err"], err)
+    out += list(timed.values())
+    out.append({
+        "name": "quantile_fused", "dtype": dtype, **tag, "shape": "round",
+        "route": "cuda", "source": "src/repro_torch/csrc/quantile_fused.cu",
+        "replaces": "src/repro/kernels/fedfa_quantile/kernel.py:85",
+        "launches": launches["quantile_fused"], "rounds": 2,
+        "max_abs_err": max(r["max_abs_err"] for r in timed.values()),
+        **{k: sum(r[k] * r["launches"] / 2 for r in timed.values())
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes", "library_ms": None})
+    # hist_level on the multilevel leaves' rows (embedding, in_proj,
+    # out_proj), at their levels
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    for rows, q, s, *_ in calls["row_trimmed_stats_multilevel"]:
+        rows, q = rows.cuda(), q.cuda()
+        s = None if s is None else s.cuda()
+        out += hist_level_rows(rows, s, q[:, None], dtype,
+                               by_shape["hist_level"], total, **tag)
+        for k in kernels:
+            k.reset()
+        pt, pss = ops.row_trimmed_stats(rows, q, s, use_kernel=False)
+        torch.cuda.synchronize()
+        ran = {k.symbol: k.launches for k in kernels if k.launches}
+        check(not ran, f"use_kernel=False on the {arch} path's rows "
+                       f"{tuple(rows.shape)} launched {ran}")
+        t, ss = ops.row_trimmed_stats(rows, q, s)
+        check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
+              f"use_kernel=False thresholds differ at {tuple(rows.shape)}")
+        torch.testing.assert_close(ss, pss, rtol=1e-5, atol=0)
+        del rows, pt, pss, t, ss
+    out.append(hist_round_row(dtype, launches["hist_level"], total, **tag))
+    # ssd_intra_chunk on the evaluation's inputs: sequence 64 in one chunk
+    # of 128, so the upper half of every chunk is padding with dt = 0
+    ssd_rows = {}
+    for a in calls["ssd_intra_chunk"]:
+        row = ssd_row(tuple(t.cuda() for t in a[:5]), by_shape[
+            "ssd_intra_chunk"], f"the {arch} {dtype} path's", path=tag[
+                "path"], update_dtype=dtype)
+        key = tuple(row["shape"])
+        if key in ssd_rows:
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     ssd_rows[key]["max_abs_err"])
+        ssd_rows[key] = row
+    check(set(ssd_rows) == set(by_shape["ssd_intra_chunk"]),
+          f"ssd_intra_chunk shapes recorded {set(ssd_rows)}, launched "
+          f"{set(by_shape['ssd_intra_chunk'])}")
+    return out + list(ssd_rows.values())
 
 
 def serve_card_vs_cpu(flash) -> None:
@@ -998,6 +1523,7 @@ def serve_path(kernels, arch: str, batch: int, prompt_len: int,
     same engine and prompts."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
+    collect_garbage()
     for k in kernels:
         k.reset()
     t0 = time.perf_counter()
@@ -1036,56 +1562,74 @@ def ssd_inputs(G, Q, nh, hp, N, dtype, gen):
         (randn(G, Q, N) * 0.3).to(dtype)
 
 
+def ssd_bound(G: int, Q: int, nh: int, hp: int, N: int, nbytes: int):
+    """(bound ms, what bounds it, the CUDA cores' f32 bound ms) of one
+    ``ssd_intra_chunk`` launch on its route: the larger of the bytes and
+    the tensor-core operations, the three products over their causal
+    triangles as three TF32 products each at f32, and at bf16 C·Bᵀ as one
+    bf16 product and M·x and the state as two TF32 products each."""
+    # operations, 2 per multiply-add: C·Bᵀ once per chunk, M·x and the
+    # state per head, the causal products over their lower triangle
+    # (s <= t: Q(Q+1)/2 entries); bytes: each input read and output
+    # written once
+    tri = Q * (Q + 1) // 2
+    cb_ops = 2 * G * tri * N
+    head_ops = 2 * G * nh * (tri * hp + Q * hp * N)
+    ops_s = (3 * (cb_ops + head_ops) / TF32_OPS_PER_S if nbytes == 4 else
+             cb_ops / BF16_OPS_PER_S + 2 * head_ops / TF32_OPS_PER_S)
+    bytes_n = (G * Q * nh * hp * nbytes + G * Q * nh * 4 + nh * 4
+               + 2 * G * Q * N * nbytes + G * Q * nh * hp * 4
+               + G * nh * hp * N * 4 + G * Q * nh * 4)
+    b, by = bound(bytes_n, ops_s * TF32_OPS_PER_S, TF32_OPS_PER_S)
+    return b, by, (cb_ops + head_ops) / F32_OPS_PER_S * 1e3
+
+
+def ssd_row(a, by_shape: dict, what: str, **extra) -> dict:
+    """``ssd_intra_chunk`` on the inputs ``a`` (x, dt, A, B, C on the card)
+    against its plain version — y and the state within 1e-4 + 1e-4·|w|, L
+    bit-equal — timed, with the launches ``by_shape`` counts for its
+    shape."""
+    from repro_torch.kernels.ssd import ops, ref
+    G, Q, nh, hp = a[0].shape
+    N = a[3].shape[2]
+    name = f"ssd_intra_chunk {a[0].dtype} on {what} {(G, Q, nh, hp, N)}"
+    got, want = ops.ssd_intra_chunk(*a), ref.ssd_intra_chunk_ref(*a)
+    for part, g, w in zip(("y", "state"), got, want):
+        check(bool(((g - w).abs() <= 1e-4 + 1e-4 * w.abs()).all()),
+              f"{name}: {part} disagrees")
+    check(torch.equal(got[2], want[2]), f"{name}: L differs")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    del got, want
+    b, by, cuda_core = ssd_bound(G, Q, nh, hp, N, a[0].element_size())
+    return {
+        "name": "ssd_intra_chunk",
+        "dtype": "f32" if a[0].dtype == torch.float32 else "bf16", **extra,
+        "shape": [G, Q, nh, hp, N], "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_intra_chunk.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:50",
+        "launches": by_shape.get((G, Q, nh, hp, N), 0), "max_abs_err": err,
+        "ms": time_ms(lambda: ops.ssd_intra_chunk(*a), 10),
+        "plain_ms": time_ms(lambda: ref.ssd_intra_chunk_ref(*a), 3),
+        "bound_ms": b, "bound_by": by,
+        # the first version's bound, f32 on the CUDA cores
+        "cuda_core_bound_ms": cuda_core, "library_ms": None}
+
+
 def ssd_checks(launches: int) -> list:
     """``ssd_intra_chunk`` against its plain version at the serving path's
     shape (batch 8 x prompt 1024 in chunks of 128: G = 64; 24 heads of 64,
-    state 128), f32 and bf16 inputs: y and the state within 1e-4 + 1e-4·|w|,
-    L bit-equal; the whole chunked SSD against its plain version; and the
-    wrapper's refusal of inputs that need a gradient.  The bound is that of
-    the kernel's route: the larger of the bytes and the tensor-core
-    operations, the three products over their causal triangles as three
-    TF32 products each at f32, and at bf16 C·Bᵀ as one bf16 product and
-    M·x and the state as two TF32 products each."""
+    state 128), f32 and bf16 inputs (``ssd_row``, bound by ``ssd_bound``);
+    the whole chunked SSD against its plain version; and the wrapper's
+    refusal of inputs that need a gradient."""
     from repro_torch.kernels.ssd import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     G, Q, nh, hp, N = 64, 128, 24, 64, 128
     out = []
-    for dtype, nbytes in ((torch.float32, 4), (torch.bfloat16, 2)):
+    for dtype in (torch.float32, torch.bfloat16):
         a = ssd_inputs(G, Q, nh, hp, N, dtype, gen)
-        got, want = ops.ssd_intra_chunk(*a), ref.ssd_intra_chunk_ref(*a)
-        for what, g, w in zip(("y", "state"), got, want):
-            check(bool(((g - w).abs() <= 1e-4 + 1e-4 * w.abs()).all()),
-                  f"ssd_intra_chunk {dtype} {what} disagrees")
-        check(torch.equal(got[2], want[2]),
-              f"ssd_intra_chunk {dtype} L differs")
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        # operations, 2 per multiply-add: C·Bᵀ once per chunk, M·x and the
-        # state per head, the causal products over their lower triangle
-        # (s <= t: Q(Q+1)/2 entries); bytes: each input read and output
-        # written once
-        tri = Q * (Q + 1) // 2
-        cb_ops = 2 * G * tri * N
-        head_ops = 2 * G * nh * (tri * hp + Q * hp * N)
-        ops_s = (3 * (cb_ops + head_ops) / TF32_OPS_PER_S if nbytes == 4 else
-                 cb_ops / BF16_OPS_PER_S + 2 * head_ops / TF32_OPS_PER_S)
-        bytes_n = (G * Q * nh * hp * nbytes + G * Q * nh * 4 + nh * 4
-                   + 2 * G * Q * N * nbytes + G * Q * nh * hp * 4
-                   + G * nh * hp * N * 4 + G * Q * nh * 4)
-        b, by = bound(bytes_n, ops_s * TF32_OPS_PER_S, TF32_OPS_PER_S)
-        out.append({
-            "name": "ssd_intra_chunk",
-            "dtype": "f32" if dtype == torch.float32 else "bf16",
-            "route": "cuda",
-            "source": "src/repro_torch/csrc/ssd_intra_chunk.cu",
-            "replaces": "src/repro/kernels/ssd/kernel.py:50",
-            "launches": launches, "max_abs_err": err,
-            "ms": time_ms(lambda: ops.ssd_intra_chunk(*a), 10),
-            "plain_ms": time_ms(lambda: ref.ssd_intra_chunk_ref(*a), 3),
-            "bound_ms": b, "bound_by": by,
-            # the first version's bound, f32 on the CUDA cores
-            "cuda_core_bound_ms": (cb_ops + head_ops) / F32_OPS_PER_S * 1e3,
-            "library_ms": None})
-        del a, got, want
+        out.append(ssd_row(a, {(G, Q, nh, hp, N): launches},
+                           "the serving path's"))
+        del a
     x, dt, A, B, C = ssd_inputs(8, 1024, nh, hp, N, torch.float32, gen)
     y, h = ops.ssd(x, dt, A, B, C, Q)
     ry, rh = ref.ssd_chunked_ref(x, dt, A, B, C, Q)
@@ -1242,11 +1786,16 @@ def main() -> int:
     for dtype in ("int8", "bf16"):
         small_quantized_check(dtype)
     print(json.dumps({"small_async": small_async_check()}), flush=True)
+    small_reference_check("mamba2-130m")
+    small_quantized_check("int8", "mamba2-130m")
+    print(json.dumps({"small_dense": small_dense_check()}), flush=True)
+    print(json.dumps({"small_tree": small_tree_check(kernels)}), flush=True)
     f32_path = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL]
     launches, shapes, quantile_calls = {}, {}, {}
     for dtype in ("f32", "int8", "bf16"):
         hist = main_path(kernels, dtype, f32_path if dtype == "f32"
                          else f32_path + [QUANT_ACCUM])
+        check_fl_launches(hist, "smollm-135m", dtype)
         launches[dtype] = hist["launches"]
         shapes[dtype] = hist["by_shape"]
         quantile_calls[dtype] = hist["quantile_calls"]
@@ -1257,6 +1806,30 @@ def main() -> int:
                 sym: [[list(shape), n] for shape, n in c.items()]
                 for sym, c in hist["by_shape"].items() if c}}}), flush=True)
         del hist
+    # FL training of mamba2-130m at full size through the aggregation
+    # kernels, and its kernels on the rows it passed them
+    fl_rows = []
+    for dtype in ("f32", "int8"):
+        hist = main_path(kernels, dtype, f32_path if dtype == "f32"
+                         else f32_path + [QUANT_ACCUM], arch="mamba2-130m",
+                         record_all=True)
+        check_fl_launches(hist, "mamba2-130m", dtype)
+        print(json.dumps({"fl_path": {"arch": "mamba2-130m",
+                                      "update_dtype": dtype, **{
+            k: hist[k] for k in ("round_loss", "global_acc", "local_acc",
+                                 "launches", "seconds", "peak_gib")},
+            "launches_by_shape": {
+                sym: [[list(shape), n] for shape, n in c.items()]
+                for sym, c in hist["by_shape"].items() if c}},
+            "card": card}), flush=True)
+        fl_rows += fl_path_kernel_rows(hist, "mamba2-130m", dtype, kernels)
+        del hist
+    for dtype in ("f32", "int8"):
+        timing, g = round_timing(dtype, "mamba2-130m")
+        print(json.dumps({"round": timing, "card": card}), flush=True)
+        del g
+    print(json.dumps({"dense_path": dense_path(kernels), "card": card}),
+          flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         for dtype in ("f32", "int8"):
             res, eng = async_path(kernels, dtype, ckpt=tmp + "/async"
@@ -1287,7 +1860,7 @@ def main() -> int:
         print(json.dumps({"serve_path": sp, "card": card}), flush=True)
     print(json.dumps({"kernels": kernel_checks(launches, shapes,
                                                quantile_calls)
-                      + hist_checks(launches, shapes) + ssd_checks(
+                      + hist_checks(launches, shapes) + fl_rows + ssd_checks(
         launches["mamba2-130m@1024"]["ssd_intra_chunk"]) + flash_checks(
         launches["smollm-135m@4096"]["flash_attention"])}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -327,6 +327,7 @@ class AsyncEngine:
         self._ensure_cbuf()
         wt = torch.as_tensor(w, device=self.device)
         kw = dict(trim=self.fl.trim, pregrafted=True,
+                  use_kernel=self.fl.use_kernel,
                   **STRATEGIES[self.fl.strategy])
         if self._qmode:
             return flat.aggregate_buffers(

@@ -1,6 +1,8 @@
-"""Client-side local update (Alg. 1 line 9, LocalUpdate): E steps of
-SGD+momentum on the client's masked sub-model, with gradients and weights
-projected back onto the client subspace after each step."""
+"""Client-side local update (Alg. 1 line 9, LocalUpdate): E steps of the
+configured optimizer (SGD+momentum, the paper's, or AdamW) on the client's
+masked sub-model, with gradients and weights projected back onto the
+client subspace after each step.  ``momentum`` and ``weight_decay`` are
+SGD's: AdamW keeps its own defaults, as in the JAX package."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -8,11 +10,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.masking import apply_mask_tree, axis_mask_tree
+from repro_torch.core.masking import (apply_mask_tree, axis_mask_tree,
+                                      mask_gradients)
 from repro_torch.models import model as model_mod
 from repro_torch.models.masks import WidthMasks
 from repro_torch.optim import init_opt, opt_update
-from repro_torch.tree import from_paths, leaves_with_path
 
 Params = Dict[str, Any]
 
@@ -29,20 +31,17 @@ def local_update(global_params: Params, cfg: ArchConfig, batches, *,
     params = apply_mask_tree(global_params, ax)          # Alg. 3: distribution
     opt_name = optimizer or cfg.optimizer
     st = init_opt(params, opt_name)
-    paths = [p for p, _ in leaves_with_path(params)]
     losses = []
     for e in range(next(iter(batches.values())).shape[0]):
-        leaves = [x.detach().requires_grad_(True)
-                  for _, x in leaves_with_path(params)]
-        loss = model_mod.loss_fn(
-            from_paths(paths, leaves), cfg, {k: v[e] for k, v in batches.items()},
+        loss, grads = model_mod.loss_and_grad(
+            params, cfg, {k: v[e] for k, v in batches.items()},
             masks=masks, gates=gates, task=task, class_mask=class_mask)
-        grads = from_paths(paths, torch.autograd.grad(loss, leaves))
-        grads = apply_mask_tree(grads, ax)
+        grads = mask_gradients(grads, ax)
         with torch.no_grad():
-            params, st = opt_update(opt_name, params, grads, st, lr,
-                                    momentum=momentum,
-                                    weight_decay=weight_decay)
+            params, st = opt_update(
+                opt_name, params, grads, st, lr,
+                **({"momentum": momentum, "weight_decay": weight_decay}
+                   if opt_name == "sgd" else {}))
             params = apply_mask_tree(params, ax)         # weight decay drift guard
-        losses.append(loss.detach())
+        losses.append(loss)
     return params, torch.stack(losses)

@@ -142,6 +142,16 @@ def unflatten(index: FlatIndex, buf: torch.Tensor) -> Params:
          for s in index.leaves])
 
 
+def unflatten_stacked(index: FlatIndex, buf: torch.Tensor) -> Params:
+    """Unpack an (m, N) buffer into a client-stacked tree (leading axis m)
+    with the original leaf dtypes; f32 leaves are views of ``buf``."""
+    m = buf.shape[0]
+    return from_paths(
+        [s.path for s in index.leaves],
+        [buf[:, s.offset:s.offset + s.size].view((m,) + s.shape).to(s.dtype)
+         for s in index.leaves])
+
+
 def _density_and_fraction(cfg: ArchConfig, index: FlatIndex, mk: WidthMasks,
                           out: Optional[torch.Tensor] = None):
     """One client's flat 0/1 width-mask density (N,) and per-leaf active
@@ -341,20 +351,22 @@ def _device_seg_id(index: FlatIndex, device) -> torch.Tensor:
 
 
 def _rows_trimmed_stats(rows: torch.Tensor, q: torch.Tensor,
-                        scale: Optional[torch.Tensor] = None):
+                        scale: Optional[torch.Tensor] = None,
+                        use_kernel: Optional[bool] = None):
     """Per-row (quantile threshold, trimmed Σw²) of signed rows (m, R, L)
     with per-client levels q (m,) -> ((m, R), (m, R)).  ``scale`` (m, R)
     dequantizes quantized rows inside the kernels."""
     m, R, L = rows.shape
     t, sq = quant_ops.row_trimmed_stats(
         rows.reshape(m * R, L).contiguous(), torch.repeat_interleave(q, R),
-        None if scale is None else scale.reshape(m * R).contiguous())
+        None if scale is None else scale.reshape(m * R).contiguous(),
+        use_kernel)
     return t.reshape(m, R), sq.reshape(m, R)
 
 
 def _cohort_norms(index: FlatIndex, xm: torch.Tensor, fracs: torch.Tensor,
-                  trim: float, scales: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  trim: float, scales: Optional[torch.Tensor] = None,
+                  use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Per-(client, segment) trimmed norms of the masked (m, N) updates with
     (m, n_leaves) active fractions -> (m, S).  ``scales`` (m, S) declares
     ``xm`` quantized: each leaf's rows carry their segments' scales."""
@@ -368,7 +380,7 @@ def _cohort_norms(index: FlatIndex, xm: torch.Tensor, fracs: torch.Tensor,
         q = 1.0 - (1.0 - trim) * fracs[:, li]
         sc = None if scales is None else scales[:, spec.seg0:spec.seg0
                                                 + spec.lead]
-        _, sq = _rows_trimmed_stats(rows, q, sc)
+        _, sq = _rows_trimmed_stats(rows, q, sc, use_kernel)
         cols.append(torch.sqrt(sq))
     return torch.cat(cols, dim=1)
 
@@ -379,7 +391,8 @@ def aggregate_buffers(index: FlatIndex, g_flat: torch.Tensor, x: torch.Tensor,
                       graft: bool = True, pregrafted: bool = False,
                       scale: bool = True,
                       scales: Optional[torch.Tensor] = None,
-                      trim: float = 0.95, eps: float = 1e-12) -> torch.Tensor:
+                      trim: float = 0.95, eps: float = 1e-12,
+                      use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Alg. 1 in flat space: (N,) global + (m, N) cohort in, (N,) new global
     out.  ``masks``, ``gates`` (m, R), ``gmaps`` (m, R) and ``n_data`` (m,)
     are the stacked cohort runtimes.  Clients with n_data = 0 weigh nothing
@@ -390,7 +403,11 @@ def aggregate_buffers(index: FlatIndex, g_flat: torch.Tensor, x: torch.Tensor,
     grafted and density-masked (``admit_quantized``); the norms read it
     through per-row scales and M' through ``accumulate_quant``'s
     per-(client, segment) table, so x is never dequantized in memory.  Γ
-    is mask data, as on the f32 path."""
+    is mask data, as on the f32 path.
+
+    ``use_kernel`` chooses the kernels or their plain versions
+    (``kernels.build.runs_plain``; None takes the kernels on the card)."""
+    kc = dict(use_kernel=use_kernel)
     if scales is not None and graft and not pregrafted:
         raise ValueError("quantized cohorts must be grafted before "
                          "quantization (pass pregrafted=True)")
@@ -416,7 +433,7 @@ def aggregate_buffers(index: FlatIndex, g_flat: torch.Tensor, x: torch.Tensor,
         x_g.mul_(dens)                               # x_g is now x_g·dens
     warow = dwrow
     if scale:
-        norms = _cohort_norms(index, x_g, fracs, trim, scales)     # (m, S)
+        norms = _cohort_norms(index, x_g, fracs, trim, scales, **kc)  # (m, S)
         valid = (n_data > 0).to(torch.float32)
         mean_norms = torch.sum(valid[:, None] * norms, dim=0, keepdim=True) \
             / torch.clamp_min(torch.sum(valid), 1.0)
@@ -425,14 +442,15 @@ def aggregate_buffers(index: FlatIndex, g_flat: torch.Tensor, x: torch.Tensor,
     ones_n = torch.ones(index.n, dtype=torch.float32, device=x.device)
     if scales is None:
         contrib = x_g if warow is None else _scale_segments(index, x_g, warow)
-        Mp = agg_ops.scaled_accum(contrib, n_data, ones_n)
+        Mp = agg_ops.scaled_accum(contrib, n_data, ones_n, **kc)
         del contrib
     else:   # scale·α·gate fold into one (m, S) table read inside the kernel
         coeff = scales if warow is None else warow * scales
         Mp = agg_ops.accumulate_quant(x_g, n_data, coeff,
-                                      _device_seg_id(index, x.device), ones_n)
+                                      _device_seg_id(index, x.device), ones_n,
+                                      **kc)
     del x_g
     counts = dens if dwrow is None else _scale_segments(index, dens, dwrow)
-    Gm = agg_ops.scaled_accum(counts, n_data, ones_n)
+    Gm = agg_ops.scaled_accum(counts, n_data, ones_n, **kc)
     upd = Mp / torch.clamp_min(Gm, eps)
     return torch.where(Gm > 0, upd, g_flat)        # γ = 0 keeps the global

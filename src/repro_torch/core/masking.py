@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.masks import WidthMasks
+from repro_torch.models.transformer import check_ported
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -32,29 +33,54 @@ def _rep(mask: Optional[torch.Tensor], k: int) -> Optional[torch.Tensor]:
 
 
 def _norm_ax(cfg: ArchConfig, dm) -> Dict[str, AX]:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not yet ported")
-    return {"scale": AX(dm)}
+    return {"scale": AX(dm)}         # RMSNorm (check_ported refuses others)
 
 
-def _block_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, Any]:
+def _attn_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, AX]:
     hd = cfg.head_dim
     h, kv = _rep(m.heads, hd), _rep(m.kv_heads, hd)
-    return {"ln1": _norm_ax(cfg, m.d_model),
-            "attn": {"wq": AX(m.d_model, h), "wk": AX(m.d_model, kv),
-                     "wv": AX(m.d_model, kv), "wo": AX(h, m.d_model)},
-            "ln2": _norm_ax(cfg, m.d_model),
-            "ffn": {"w_gate": AX(m.d_model, m.d_ff),
-                    "w_up": AX(m.d_model, m.d_ff),
-                    "w_down": AX(m.d_ff, m.d_model)}}
+    return {"wq": AX(m.d_model, h), "wk": AX(m.d_model, kv),
+            "wv": AX(m.d_model, kv), "wo": AX(h, m.d_model)}
+
+
+def _ffn_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, AX]:
+    return {"w_gate": AX(m.d_model, m.d_ff), "w_up": AX(m.d_model, m.d_ff),
+            "w_down": AX(m.d_ff, m.d_model)}
+
+
+def _ssd_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, AX]:
+    """The SSD block's leaves: heads mask the x part of the input
+    projection (z and x columns, one per head channel) and the dt columns;
+    B and C (d_state columns each) stay whole."""
+    s = cfg.ssm
+    N, hp = s.d_state, s.head_dim
+    inner = _rep(m.ssm_heads, hp)
+    if inner is None:
+        proj_col = conv_col = None
+    else:
+        ones_n = torch.ones((N,), dtype=torch.float32, device=inner.device)
+        proj_col = torch.cat([inner, inner, ones_n, ones_n, m.ssm_heads])
+        conv_col = torch.cat([inner, ones_n, ones_n])
+    return {"in_proj": AX(m.d_model, proj_col),
+            "conv_w": AX(None, conv_col), "conv_b": AX(conv_col),
+            "A_log": AX(m.ssm_heads), "D": AX(m.ssm_heads),
+            "dt_bias": AX(m.ssm_heads), "norm": AX(inner),
+            "out_proj": AX(inner, m.d_model)}
+
+
+def _block_ax(kind: str, cfg: ArchConfig, m: WidthMasks) -> Dict[str, Any]:
+    if kind == "ssd":
+        return {"ln": _norm_ax(cfg, m.d_model), "ssd": _ssd_ax(cfg, m)}
+    return {"ln1": _norm_ax(cfg, m.d_model), "attn": _attn_ax(cfg, m),
+            "ln2": _norm_ax(cfg, m.d_model), "ffn": _ffn_ax(cfg, m)}
 
 
 def axis_mask_tree(cfg: ArchConfig, m: WidthMasks) -> Params:
     """Tree matching the params structure; leaves are AX objects."""
-    if cfg.family != "dense" or any(k != "attn" for k in cfg.layer_pattern):
-        raise NotImplementedError(f"family {cfg.family!r} is not yet ported")
+    check_ported(cfg)
     t: Params = {"embed": AX(None, m.d_model),
-                 "stages": tuple((_block_ax(cfg, m),) for _ in cfg.stages()),
+                 "stages": tuple(tuple(_block_ax(k, cfg, m) for k in unit)
+                                 for unit, _ in cfg.stages()),
                  "final_norm": _norm_ax(cfg, m.d_model)}
     if not cfg.tie_embeddings:
         t["lm_head"] = AX(m.d_model, None)
@@ -98,3 +124,9 @@ def active_fraction(ax: AX) -> torch.Tensor:
         if mv is not None:
             f = f.to(mv.device) * torch.mean(mv)
     return f
+
+
+def mask_gradients(grads: Params, axtree: Params) -> Params:
+    """Project gradients back onto the client's subspace (defensive: the
+    masked forward already yields zero gradients outside it)."""
+    return apply_mask_tree(grads, axtree)

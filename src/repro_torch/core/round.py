@@ -93,7 +93,8 @@ def flat_round(g_buf: torch.Tensor, c_buf: torch.Tensor, cfg: ArchConfig,
     kw = STRATEGIES[fl.strategy]
     if fl.update_dtype == "f32":
         g_new = flat.aggregate_buffers(index, g_buf, c_buf, cfg, masks, gates,
-                                       gmaps, nd, trim=fl.trim, **kw)
+                                       gmaps, nd, trim=fl.trim,
+                                       use_kernel=fl.use_kernel, **kw)
     else:
         if qstate is None or qstate[0].dtype != flat.update_dtype_of(
                 fl.update_dtype) or qstate[0].shape != c_buf.shape:
@@ -105,7 +106,7 @@ def flat_round(g_buf: torch.Tensor, c_buf: torch.Tensor, cfg: ArchConfig,
         g_new = flat.aggregate_buffers(index, g_buf, qstate[0], cfg, masks,
                                        gates, gmaps, nd, trim=fl.trim,
                                        scales=qstate[1], pregrafted=True,
-                                       **kw)
+                                       use_kernel=fl.use_kernel, **kw)
     g_buf.copy_(g_new)
     return torch.mean(losses)
 

@@ -15,9 +15,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import attacks as attacks_mod
-from repro_torch.core import flat
+from repro_torch.core import fedfa, flat
 from repro_torch.core.client import local_update
-from repro_torch.core.fedfa import STRATEGIES
 from repro_torch.models.masks import (ClientArch, WidthMasks, full_client,
                                       stack_masks)
 
@@ -41,8 +40,17 @@ class FLConfig:
     strategy: str = "fedfa"
     task: str = "lm"
     trim: float = 0.95
+    agg_engine: str = "flat"            # "flat" (fused buffer) | "tree"
+    use_kernel: Optional[bool] = None   # kernels (None: on the card only)
+    interpret: bool = False             # the plain versions: use_kernel False
     update_dtype: str = "f32"           # cohort admission dtype: f32|bf16|int8
     seed: int = 0
+
+    def __post_init__(self):
+        # the port's interpret mode is the kernels' plain versions, so the
+        # one choice threaded below is ``use_kernel``
+        if self.interpret:
+            self.use_kernel = False
 
 
 def select_clients(n_clients: int, frac: float,
@@ -111,7 +119,9 @@ def fl_round(global_params: Params, cfg: ArchConfig, fl: FLConfig,
              specs: Sequence[ClientSpec], client_batches, *,
              perms: Optional[torch.Tensor] = None) -> Tuple[Params, torch.Tensor]:
     """One round over the selected clients without resident buffers (the
-    per-round driver): returns (new global params, mean local loss)."""
+    per-round driver), aggregated by ``fl.agg_engine``: the flat engine on
+    the cohort buffer, or the tree engine on the client-stacked trees
+    viewed out of it.  Returns (new global params, mean local loss)."""
     device = global_params["embed"].device
     masks, gates, gmaps, nd, cms, mal = stack_runtimes(cfg, specs, device)
     index = flat.FlatIndex(global_params)
@@ -120,10 +130,51 @@ def fl_round(global_params: Params, cfg: ArchConfig, fl: FLConfig,
                            client_batches,
                            default_class_masks(cms, cfg, fl, len(specs), device),
                            mal, perms, x)
+    if fl.agg_engine == "tree":
+        return fedfa.aggregate_strategy(
+            fl.strategy, global_params, flat.unflatten_stacked(index, x), cfg,
+            masks, gates, gmaps, nd, trim=fl.trim, engine="tree"), \
+            torch.mean(losses)
+    if fl.agg_engine != "flat":
+        raise ValueError(f"unknown aggregation engine {fl.agg_engine!r}")
     g_new = flat.aggregate_buffers(
         index, flat.flatten(index, global_params), x, cfg, masks, gates,
-        gmaps, nd, trim=fl.trim, **STRATEGIES[fl.strategy])
+        gmaps, nd, trim=fl.trim, use_kernel=fl.use_kernel,
+        **fedfa.STRATEGIES[fl.strategy])
     return flat.unflatten(index, g_new), torch.mean(losses)
+
+
+def fl_round_flat(g_buf: torch.Tensor, cfg: ArchConfig, fl: FLConfig,
+                  specs: Sequence[ClientSpec], client_batches, *,
+                  index: Optional[flat.FlatIndex] = None, c_buf=None,
+                  perms: Optional[torch.Tensor] = None):
+    """Flat-native counterpart of ``fl_round``: one round on the resident
+    (N,) global buffer, in place, through ``round.flat_round``.  ``c_buf``
+    is the cohort state a previous call returned: the (m, N) f32 training
+    buffer, or with a quantized ``fl.update_dtype`` the pair (training
+    buffer, quantized state); None (or one of another shape) allocates a
+    fresh one.  Returns (g_buf, c_buf to pass back next round, mean local
+    loss).  For many rounds prefer ``round.run_rounds``."""
+    from repro_torch.core import round as round_mod
+    if index is None:
+        raise ValueError("fl_round_flat needs the FlatIndex the resident "
+                         "buffer was flattened with (flat.FlatIndex(params))")
+    m, device = len(specs), g_buf.device
+    qmode = fl.update_dtype != "f32"
+    buf, qstate = (c_buf if qmode and isinstance(c_buf, tuple)
+                   else (c_buf, None))
+    want = flat.update_dtype_of(fl.update_dtype)
+    if (not isinstance(buf, torch.Tensor)
+            or tuple(buf.shape) != (m, index.n)):
+        buf = torch.empty((m, index.n), dtype=torch.float32, device=device)
+    if qmode and (qstate is None or qstate[0].dtype != want
+                  or qstate[0].shape[0] != m):
+        qstate = round_mod.fresh_quant_state(index, m, fl.update_dtype,
+                                             device)
+    loss = round_mod.flat_round(g_buf, buf, cfg, fl, index,
+                                stack_runtimes(cfg, specs, device),
+                                client_batches, perms, qstate)
+    return g_buf, ((buf, qstate) if qmode else buf), loss
 
 
 def make_client_specs(cfg: ArchConfig, n_clients: int, *,

@@ -143,3 +143,21 @@ def check_input(name: str, t: torch.Tensor, dtype: torch.dtype,
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} is on {device}: the kernels run on CUDA "
                          f"and their plain versions on the CPU")
+
+
+def runs_plain(t: torch.Tensor, use_kernel: Optional[bool] = None) -> bool:
+    """Whether a wrapper runs its plain version on ``t`` instead of its
+    kernel.  ``use_kernel`` None (auto): the kernel on a CUDA tensor, the
+    plain version on a CPU tensor; True: the kernel, and a CPU tensor
+    raises; False: the plain version on any device (the port's stand-in
+    for Pallas interpret mode, ``FLConfig.interpret``).  A kernel that
+    fails to build or launch raises; it never gives way to the plain
+    version."""
+    if use_kernel is False:
+        return True
+    if t.device.type == "cpu":
+        if use_kernel:
+            raise RuntimeError("use_kernel=True: the CUDA kernels run on "
+                               "CUDA tensors, got a CPU tensor")
+        return True
+    return False

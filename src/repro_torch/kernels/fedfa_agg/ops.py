@@ -3,16 +3,19 @@
 ``trimmed_sumsq`` (``csrc/trimmed_sumsq.cu``).
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
-it runs the plain version in ``ref``.
+it runs the plain version in ``ref``.  ``use_kernel`` chooses otherwise
+(``build.runs_plain``).
 """
 from __future__ import annotations
 
 import ctypes
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel, check_input,
-                                       stream_of)
+                                       runs_plain, stream_of)
 from repro_torch.kernels.fedfa_agg import ref
 
 SCALED_ACCUM = CudaKernel(
@@ -43,7 +46,8 @@ _MAX_TABLE_BYTES = 232448
 
 
 def scaled_accum(x: torch.Tensor, weights: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
+                 mask: torch.Tensor, use_kernel: Optional[bool] = None
+                 ) -> torch.Tensor:
     """Fused Σ_c weights[c]·x[c]·mask over the client axis: x (m, n) f32
     or bf16 (upcast as it is read), weights (m,) and mask (n,) f32 -> (n,)
     f32 (Alg. 1 line 19, M' and Γ)."""
@@ -54,7 +58,7 @@ def scaled_accum(x: torch.Tensor, weights: torch.Tensor,
     check_input("x", x, x.dtype, (m, n), x.device)
     check_input("weights", weights, torch.float32, (m,), x.device)
     check_input("mask", mask, torch.float32, (n,), x.device)
-    if x.device.type == "cpu":
+    if runs_plain(x, use_kernel):
         return ref.scaled_accum_ref(x, weights, mask)
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -65,7 +69,8 @@ def scaled_accum(x: torch.Tensor, weights: torch.Tensor,
 
 
 def quant_accum(x: torch.Tensor, wtab: torch.Tensor, seg: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
+                mask: torch.Tensor, use_kernel: Optional[bool] = None
+                ) -> torch.Tensor:
     """Fused dequantize-accumulate Σ_c x[c, n]·wtab[c, seg[n]]·mask[n]:
     x (m, n) int8 or bf16 rows, wtab (m, S) f32 per-(client, segment)
     weights with the dequant scales folded in, seg (n,) int32 (−1 adds
@@ -83,7 +88,7 @@ def quant_accum(x: torch.Tensor, wtab: torch.Tensor, seg: torch.Tensor,
     check_input("mask", mask, torch.float32, (n,), x.device)
     if S < 1:
         raise ValueError("quant_accum needs at least one segment")
-    if x.device.type == "cpu":
+    if runs_plain(x, use_kernel):
         return ref.quant_accum_ref(x, wtab, seg, mask)
     if m * S * 4 > _MAX_TABLE_BYTES:
         raise ValueError(f"quant_accum's (m, S) = ({m}, {S}) table exceeds "
@@ -99,14 +104,16 @@ def quant_accum(x: torch.Tensor, wtab: torch.Tensor, seg: torch.Tensor,
 
 def accumulate_quant(x: torch.Tensor, weights: torch.Tensor,
                      wtab: torch.Tensor, seg: torch.Tensor,
-                     mask: torch.Tensor) -> torch.Tensor:
+                     mask: torch.Tensor, use_kernel: Optional[bool] = None
+                     ) -> torch.Tensor:
     """Σ_c weights[c]·wtab[c, seg[n]]·x[c, n]·mask[n]: the per-client
     weight folds into the (m, S) table before the one launch, so the
     quantized rows are read once."""
-    return quant_accum(x, wtab * weights[:, None], seg, mask)
+    return quant_accum(x, wtab * weights[:, None], seg, mask, use_kernel)
 
 
-def trimmed_sumsq(w: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def trimmed_sumsq(w: torch.Tensor, t: torch.Tensor,
+                  use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Σ w²·[|w| <= t] over a flat f32 or bf16 vector w (n,) (upcast as it
     is read), threshold t a 0-d f32 tensor on w's device -> 0-d f32.
     Summed in a fixed order on the card (per-block partials, then one
@@ -116,7 +123,7 @@ def trimmed_sumsq(w: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     _check_float_rows("w", w)
     check_input("w", w, w.dtype, tuple(w.shape), w.device)
     check_input("t", t, torch.float32, (), w.device)
-    if w.device.type == "cpu":
+    if runs_plain(w, use_kernel):
         return ref.trimmed_sumsq_ref(w, t)
     n = w.shape[0]
     sms = torch.cuda.get_device_properties(w.device).multi_processor_count
@@ -129,9 +136,11 @@ def trimmed_sumsq(w: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def trimmed_norm(w_flat: torch.Tensor, t) -> torch.Tensor:
+def trimmed_norm(w_flat: torch.Tensor, t, use_kernel: Optional[bool] = None
+                 ) -> torch.Tensor:
     """sqrt(Σ w²·[|w| <= t]) over a flat f32 or bf16 vector of any
     length."""
     t = torch.as_tensor(t, dtype=torch.float32,
                         device=w_flat.device).reshape(())
-    return torch.sqrt(trimmed_sumsq(w_flat.reshape(-1).contiguous(), t))
+    return torch.sqrt(trimmed_sumsq(w_flat.reshape(-1).contiguous(), t,
+                                    use_kernel))

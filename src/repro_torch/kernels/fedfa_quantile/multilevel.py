@@ -12,12 +12,13 @@ histogram planes; the level loop, cumulative sums and bin pick stay here.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel, check_input,
-                                       stream_of)
+                                       runs_plain, stream_of)
 from repro_torch.kernels.fedfa_quantile import ref
 
 _BINS = 256
@@ -47,7 +48,8 @@ def kernel_rows(x: torch.Tensor, scale: Optional[torch.Tensor]):
 
 
 def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
-               shift: int, sc: Optional[torch.Tensor] = None):
+               shift: int, sc: Optional[torch.Tensor] = None,
+               use_kernel: Optional[bool] = None):
     """One level's histogram planes: x (m, C) f32, seg_id (C,) int32 (−1
     inert), hi (m, 2, S) int32 -> counts (m, 2, S, 256) int32 and Σx²
     (m, 2, S, 256) f32 (see ``ref.hist_level_ref``).  With ``sc`` (m, S)
@@ -64,7 +66,7 @@ def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
     check_input("hi", hi, torch.int32, (m, 2, S), x.device)
     if sc is not None:
         check_input("sc", sc, torch.float32, (m, S), x.device)
-    if x.device.type == "cpu":
+    if runs_plain(x, use_kernel):
         return ref.hist_level_ref(x, seg_id, hi, shift, sc)
     if not 1 <= S <= MAX_SEGMENTS or m > 65535:
         raise ValueError(f"hist_level takes 1..{MAX_SEGMENTS} segments and "
@@ -81,7 +83,8 @@ def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
 
 def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
                             seg_len: torch.Tensor, q_seg: torch.Tensor,
-                            scales: Optional[torch.Tensor] = None):
+                            scales: Optional[torch.Tensor] = None,
+                            use_kernel: Optional[bool] = None):
     """Exact per-(row, segment) (threshold, trimmed Σw²) over flat rows.
 
     x (m, C) f32; seg_id (C,) int32 maps each column to its segment (−1
@@ -91,9 +94,11 @@ def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
     ss = Σ x²·[|x| <= t].  ``scales`` (m, S) declares x quantized (int8 or
     bf16): the rows stay in their dtype and every level dequantizes them
     per segment, so t and ss are in dequantized units.  int8 / bf16 rows
-    without scales are upcast to f32.
+    without scales are upcast to f32.  ``use_kernel`` reaches every
+    level's ``hist_level``.
     """
-    t, ss, _ = _search(x, seg_id, seg_len, q_seg, scales, hist_level)
+    t, ss, _ = _search(x, seg_id, seg_len, q_seg, scales,
+                       functools.partial(hist_level, use_kernel=use_kernel))
     return t, ss
 
 
@@ -143,7 +148,8 @@ def _search(x, seg_id, seg_len, q_seg, scales, hist):
 
 
 def row_trimmed_stats_multilevel(rows: torch.Tensor, q: torch.Tensor,
-                                 scale: Optional[torch.Tensor] = None):
+                                 scale: Optional[torch.Tensor] = None,
+                                 use_kernel: Optional[bool] = None):
     """``ops.row_trimmed_stats`` for long rows: each row (R, L) is one
     single-segment client; q (R,) levels.  With ``scale`` (R,) the rows
     may be int8 or bf16 and keep that dtype end to end."""
@@ -152,5 +158,5 @@ def row_trimmed_stats_multilevel(rows: torch.Tensor, q: torch.Tensor,
     seg_len = torch.full((1,), L, dtype=torch.int64, device=rows.device)
     t, ss = segmented_trimmed_stats(
         rows, seg_id, seg_len, q.reshape(R, 1),
-        None if scale is None else scale.reshape(R, 1))
+        None if scale is None else scale.reshape(R, 1), use_kernel)
     return t[:, 0], ss[:, 0]

@@ -6,6 +6,7 @@ go to the single-pass kernel and longer rows to the multilevel kernel, the
 JAX package's dispatch rule kept as it is; re-deriving the cutoff for
 Hopper is later work.  On a CUDA tensor each wrapper launches its kernel or
 raises; on a CPU tensor it runs the plain version in ``ref``.
+``use_kernel`` chooses otherwise (``build.runs_plain``).
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, check_input, stream_of
+from repro_torch.kernels.build import (CudaKernel, check_input, runs_plain,
+                                       stream_of)
 from repro_torch.kernels.fedfa_quantile import multilevel, ref
 
 _LANES = 128
@@ -63,7 +65,8 @@ def cluster_geometry(L: int, itemsize: int, cs: Optional[int] = None):
 
 
 def quantile_fused(rows: torch.Tensor, q: torch.Tensor,
-                   scale: Optional[torch.Tensor] = None):
+                   scale: Optional[torch.Tensor] = None,
+                   use_kernel: Optional[bool] = None):
     """(t, ss) per row of |rows| — threshold ``quantile(|row|, q)`` and the
     trimmed Σ row²·[|row| <= t] — in one kernel.  rows (R, L) f32, q (R,).
     With ``scale`` (R,) f32 the rows may be int8 or bf16 and are
@@ -78,7 +81,7 @@ def quantile_fused(rows: torch.Tensor, q: torch.Tensor,
     check_input("q", q, torch.float32, (R,), rows.device)
     if scale is not None:
         check_input("scale", scale, torch.float32, (R,), rows.device)
-    if rows.device.type == "cpu":
+    if runs_plain(rows, use_kernel):
         return ref.row_trimmed_stats_ref(ref.dequantize_rows(rows, scale), q)
     cs, per, _ = cluster_geometry(L, rows.element_size())
     t = torch.empty(R, dtype=torch.float32, device=rows.device)
@@ -91,7 +94,8 @@ def quantile_fused(rows: torch.Tensor, q: torch.Tensor,
 
 
 def row_trimmed_stats(rows: torch.Tensor, q: torch.Tensor,
-                      scale: Optional[torch.Tensor] = None):
+                      scale: Optional[torch.Tensor] = None,
+                      use_kernel: Optional[bool] = None):
     """Per-row (quantile threshold, trimmed Σw²) of signed rows (R, L) with
     levels q (R,): t[r] = quantile(|rows[r]|, q[r]) bit-equal to
     jnp.quantile, ss[r] = Σ rows[r]²·[|rows[r]| <= t[r]].  ``scale`` (R,)
@@ -99,5 +103,6 @@ def row_trimmed_stats(rows: torch.Tensor, q: torch.Tensor,
     and every kernel dequantizes them as it reads them."""
     L = rows.shape[1]
     if -(-L // _LANES) * _LANES > _SINGLE_PASS_ELEMS:
-        return multilevel.row_trimmed_stats_multilevel(rows, q, scale)
-    return quantile_fused(rows, q, scale)
+        return multilevel.row_trimmed_stats_multilevel(rows, q, scale,
+                                                       use_kernel)
+    return quantile_fused(rows, q, scale, use_kernel)

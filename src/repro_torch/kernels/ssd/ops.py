@@ -60,8 +60,9 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ssd_intra_chunk_ref(x, dt, A, B, C)
     if any(t.requires_grad for t in (x, dt, A, B, C)):
-        raise NotImplementedError("training through the SSD is not yet "
-                                  "ported")
+        raise NotImplementedError("ssd_intra_chunk's kernel has no "
+                                  "backward: training takes the plain "
+                                  "chunked SSD (models/ssm.py)")
     if not (4 <= Q <= _MAX_Q and 4 <= N <= _MAX_N and 4 <= hp <= _MAX_HP
             and Q % 4 == N % 4 == hp % 4 == 0):
         raise ValueError(f"ssd_intra_chunk's kernel takes Q <= {_MAX_Q}, "
@@ -81,7 +82,7 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            nh, hp, N,
                            heads_per_block(G, Q, nh, hp, N, sms,
                                            x.element_size()),
-                           stream_of(x))
+                           stream_of(x), shape=(G, Q, nh, hp, N))
     return y, state, L
 
 

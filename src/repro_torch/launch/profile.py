@@ -1,9 +1,10 @@
 """Where a resident round's, or a serving request's, time goes on the GPU.
 
     python -m repro_torch.launch.profile [--clients 8] [--top 15]
-        [--update-dtype f32|bf16|int8]
+        [--update-dtype f32|bf16|int8] [--arch smollm-135m|mamba2-130m]
     python -m repro_torch.launch.profile --serve mamba2-130m|smollm-135m
         [--prompt-len 1024] [--top 15]
+    python -m repro_torch.launch.profile --dense smollm-135m [--top 15]
 
 Builds one round of the main path at full size (smollm-135m, 8 clients of
 the width pool, batch 8, sequence 64, 2 local steps, fedfa), runs one
@@ -14,8 +15,10 @@ more round with ``torch.profiler``: the operators with the most device
 time, the number of device kernels, and the device's busy share of the
 traced window.  With ``--serve`` it traces instead ``launch.serve``'s
 engine at full size: the prefill of 8 prompts and then 8 decode steps
-(after a warm-up request).  Prints one JSON object.  Needs a CUDA
-device.
+(after a warm-up request).  With ``--dense`` it traces one full-size
+``--mode dense`` train step (batch 8, sequence 64, after a warm-up step)
+and its forward and backward alone, the rest being the optimizer.
+Prints one JSON object.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ BATCH, DECODE_STEPS = 8, 8  # a serving trace's prompts and decode steps
 
 
 def full_round(m: int = 8, seed: int = 1, device=None,
-               update_dtype: str = "f32") -> dict:
-    """Everything one full-size resident round needs, on ``device``."""
+               update_dtype: str = "f32", arch: str = "smollm-135m") -> dict:
+    """Everything one full-size resident round of ``arch`` needs, on
+    ``device``."""
     from repro_torch.core import flat
     from repro_torch.core.round import fresh_quant_state
     from repro_torch.core.server import (FLConfig, default_class_masks,
@@ -44,7 +48,7 @@ def full_round(m: int = 8, seed: int = 1, device=None,
     from repro_torch.tree import tree_map
 
     dev = resolve_device(device)
-    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=True)
+    cfg = train.fl_config(arch, "cls", 10, full_size=True)
     params = tree_map(lambda t: t.to(dev), init_params(
         cfg, torch.Generator().manual_seed(seed)))
     specs = make_client_specs(cfg, m, archs=train.client_arch_pool(cfg, "width"),
@@ -91,11 +95,12 @@ def _phases(r: dict):
         if qstate is None:
             g_new = flat.aggregate_buffers(
                 index, r["g_buf"], r["c_buf"], cfg, masks, gates, gmaps, nd,
-                trim=fl.trim, **kw)
+                trim=fl.trim, use_kernel=fl.use_kernel, **kw)
         else:
             g_new = flat.aggregate_buffers(
                 index, r["g_buf"], qstate[0], cfg, masks, gates, gmaps, nd,
-                trim=fl.trim, scales=qstate[1], pregrafted=True, **kw)
+                trim=fl.trim, scales=qstate[1], pregrafted=True,
+                use_kernel=fl.use_kernel, **kw)
         r["g_buf"].copy_(g_new)
     if qstate is None:
         return [("train", train), ("aggregate", aggregate)]
@@ -190,6 +195,35 @@ def serving(arch: str, prompt_len: int, top: int) -> dict:
                        "steps": DECODE_STEPS}}
 
 
+def dense(arch: str, top: int, batch: int = 8, seq_len: int = 64) -> dict:
+    """Traces of one full-size dense train step of ``arch`` (as
+    ``launch.train.run_dense`` runs it: one microbatch, its optimizer and
+    schedule) after one warm-up step, and of its forward and backward
+    alone; the optimizer is the step less the gradient."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_params, loss_and_grad
+    from repro_torch.optim import init_opt
+    from repro_torch.tree import tree_map
+    cfg = get_arch(arch).replace(grad_accum=1)
+    params = tree_map(lambda t: t.to("cuda"), init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    st = {"p": params, "opt": init_opt(params, cfg.optimizer)}
+    fn = steps.make_train_step(cfg, total_steps=100)
+    batch = {"tokens": torch.as_tensor(synthetic.lm_stream(
+        cfg.vocab_size, batch, seq_len, seed=0), dtype=torch.int64,
+        device="cuda")}
+
+    def step():
+        st["p"], st["opt"], _ = fn(st["p"], st["opt"], batch, 1)
+    step()
+    full = _trace([step])
+    grad = _trace([lambda: loss_and_grad(st["p"], cfg, batch, task="lm")])
+    return {"step": _report(full, top), "grad": _report(grad, top),
+            "optimizer": _report(_minus(full, grad), top)}
+
+
 def main(argv: Optional[list] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--clients", type=int, default=8)
@@ -199,14 +233,22 @@ def main(argv: Optional[list] = None) -> dict:
     ap.add_argument("--serve", default=None,
                     help="trace serving this arch instead of a round")
     ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--arch", default="smollm-135m",
+                    help="the model of the traced round")
+    ap.add_argument("--dense", default=None,
+                    help="trace a dense train step of this arch instead")
     args = ap.parse_args(argv)
-    if args.serve:
+    if args.dense:
+        out = {"card": torch.cuda.get_device_name(0), "arch": args.dense,
+               "batch": BATCH, "seq_len": 64, **dense(args.dense, args.top)}
+    elif args.serve:
         out = {"card": torch.cuda.get_device_name(0), "arch": args.serve,
                "batch": BATCH, "prompt_len": args.prompt_len,
                **serving(args.serve, args.prompt_len, args.top)}
     else:
-        r = full_round(args.clients, update_dtype=args.update_dtype)
-        out = {"card": torch.cuda.get_device_name(0),
+        r = full_round(args.clients, update_dtype=args.update_dtype,
+                       arch=args.arch)
+        out = {"card": torch.cuda.get_device_name(0), "arch": args.arch,
                "n_params": r["index"].n, "m": args.clients,
                "update_dtype": args.update_dtype, **breakdown(r),
                "trace": trace(r, args.top)}

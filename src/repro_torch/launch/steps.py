@@ -1,11 +1,102 @@
-"""Step functions shared by the serving entry points (the port's part of
-``repro.launch.steps``)."""
+"""Step functions of the training and serving entry points (the port's
+``repro.launch.steps``): train, prefill and decode.
+
+``make_train_step`` accumulates ``cfg.grad_accum`` microbatches in order
+(a Python loop where the JAX package scans); with SGD the microbatch
+gradients go straight into the momentum buffer, as the reference does.
+"""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as model_mod
+from repro_torch.optim import make_schedule, opt_update
+from repro_torch.tree import tree_map
+
+Params = Dict[str, Any]
+
+
+def make_train_step(cfg: ArchConfig, total_steps: int = 1000):
+    """train_step(params, opt_state, batch, step) -> (params, opt_state,
+    loss): one optimizer step on ``batch`` ({'tokens': (B, S)}) at the
+    schedule's rate for ``step``."""
+    sched = make_schedule(cfg.schedule, cfg.learning_rate, total_steps,
+                          warmup=max(total_steps // 100, 1))
+
+    def train_step(params, opt_state, batch, step):
+        A = cfg.grad_accum
+        lr = sched(step)
+        if A == 1:
+            loss, grads = model_mod.loss_and_grad(params, cfg, batch,
+                                                  task="lm")
+            with torch.no_grad():
+                params, opt_state = opt_update(cfg.optimizer, params, grads,
+                                               opt_state, lr)
+            return params, opt_state, loss
+
+        micro = [{k: v.reshape((A, v.shape[0] // A) + v.shape[1:])[i]
+                  for k, v in batch.items()} for i in range(A)]
+        lsum = 0.0
+        if cfg.optimizer == "sgd":
+            # fused momentum accumulation: the microbatch gradients go
+            # straight into the momentum buffer (m' = μ·m + wd·p + Σ g/A),
+            # so no separate gradient-accumulator tree is kept
+            with torch.no_grad():
+                m_acc = tree_map(
+                    lambda m, p: cfg.momentum * m.to(torch.float32)
+                    + cfg.weight_decay * p.to(torch.float32),
+                    opt_state["m"], params)
+            for mb in micro:
+                loss, g = model_mod.loss_and_grad(params, cfg, mb,
+                                                  task="lm")
+                with torch.no_grad():
+                    m_acc = tree_map(lambda m, gg: m + gg / A, m_acc, g)
+                lsum = lsum + loss
+            mdt = (torch.bfloat16 if cfg.momentum_dtype == "bfloat16"
+                   else torch.float32)
+            with torch.no_grad():
+                params = tree_map(
+                    lambda p, m: (p.to(torch.float32) - lr * m).to(p.dtype),
+                    params, m_acc)
+                m_new = tree_map(lambda m: m.to(mdt), m_acc)
+            return params, {"step": opt_state["step"] + 1, "m": m_new}, \
+                lsum / A
+
+        with torch.no_grad():
+            g_acc = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+        for mb in micro:
+            loss, g = model_mod.loss_and_grad(params, cfg, mb, task="lm")
+            with torch.no_grad():
+                g_acc = tree_map(torch.add, g_acc, g)
+            lsum = lsum + loss
+        with torch.no_grad():
+            grads = tree_map(lambda g: g / A, g_acc)
+            params, opt_state = opt_update(cfg.optimizer, params, grads,
+                                           opt_state, lr)
+        return params, opt_state, lsum / A
+
+    return train_step
+
+
+def make_prefill_step(cfg: ArchConfig, *, window: Optional[int] = None,
+                      masks=None):
+    """prefill_step(params, batch) -> (last-position logits, caches)."""
+    def prefill_step(params, batch):
+        return model_mod.prefill(params, cfg, batch, window=window,
+                                 masks=masks,
+                                 capacity=_prefill_capacity(cfg, batch),
+                                 chunk_size=cfg.prefill_chunk)
+    return prefill_step
+
+
+def _prefill_capacity(cfg: ArchConfig, batch) -> int:
+    """Cache positions a prefill needs: the prompt's (the vision family's
+    patches, which would add to it, are not ported)."""
+    return batch["tokens"].shape[1]
 
 
 def make_decode_step(cfg: ArchConfig, *, window: Optional[int] = None,

@@ -1,25 +1,37 @@
-"""Federated training driver, ``--mode fl``: synthetic federated rounds with
-heterogeneous client architectures, FedFA (or baseline) aggregation and
-optional backdoor attackers, with the resident, the per-round or the async
-driver.
+"""Training driver, as the JAX package's ``launch/train.py``:
 
-    python -m repro_torch.launch.train --mode fl [--full-size] [--device cpu]
-        [--update-dtype f32|bf16|int8] [--ckpt PREFIX]
+  * ``--mode fl`` — synthetic federated rounds with heterogeneous client
+    architectures, FedFA (or baseline) aggregation and optional backdoor
+    attackers, with the resident, the per-round or the async driver;
+  * ``--mode dense`` — plain pretraining of one architecture for
+    ``--steps`` steps on a synthetic token stream.
+
+    python -m repro_torch.launch.train --mode fl [--arch ARCH] [--full-size]
+        [--device cpu] [--update-dtype f32|bf16|int8] [--ckpt PREFIX]
+        [--agg-engine flat|tree] [--use-kernel auto|on|off] [--interpret]
         [--driver async [--merge-k K] [--staleness-max S]
                         [--async-deadline T]]
+    python -m repro_torch.launch.train --mode dense [--arch ARCH]
+        [--steps N] [--full-size] [--device cpu]
 
-With ``--driver async``, ``--rounds`` counts merges.
+With ``--driver async``, ``--rounds`` counts merges.  ``--agg-engine tree``
+runs the per-round driver (the resident and async drivers are flat-native,
+as in the reference).  ``--use-kernel on`` runs the CUDA kernels (and
+raises on the CPU), ``off`` or ``--interpret`` their plain PyTorch versions
+on any device; ``auto`` takes the kernels on the card.
 
 Runs on ``cuda`` unless ``--device`` says otherwise.  By default the model
-is cut to the JAX CLI's size (4 layers, 2 sections, a 64-entry untied
-vocabulary on the cls task); ``--full-size`` runs the published
-configuration.  Flags of the JAX CLI that are not yet ported raise.
+is cut to the JAX CLI's size (fl: 4 layers, 2 sections, a 64-entry untied
+vocabulary on the cls task; dense: ``reduced()``); ``--full-size`` runs the
+published configuration.  ``--mesh`` and ``--mesh-shape`` are not yet
+ported and raise.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import time
 from typing import Optional
 
 import numpy as np
@@ -27,6 +39,47 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.tree import tree_map
+
+
+def run_dense(arch: str, steps: int, batch: int, seq_len: int,
+              log_every: int = 10, full_size: bool = False, seed: int = 0,
+              device=None, params=None) -> dict:
+    """Plain pretraining of ``arch`` for ``steps`` steps of ``batch``
+    sequences of ``seq_len`` tokens (one microbatch a step, as the
+    reference).  ``params``: the initial weights (for instance the
+    reference's, through ``params_from_numpy``); drawn from ``seed`` on the
+    CPU if None."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import init_opt
+
+    dev = resolve_device(device)
+    cfg = get_arch(arch)
+    if not full_size:
+        cfg = cfg.reduced()
+    cfg = cfg.replace(grad_accum=1)
+    if params is None:
+        params = tree_map(lambda t: t.to(dev), model_mod.init_params(
+            cfg, torch.Generator().manual_seed(seed)))
+    opt = init_opt(params, cfg.optimizer)
+    step_fn = make_train_step(cfg, total_steps=steps)
+    data = synthetic.lm_stream(cfg.vocab_size, steps * batch, seq_len,
+                               seed=seed)
+    losses = []
+    t0 = time.time()
+    for s in range(steps):
+        tok = torch.as_tensor(data[s * batch:(s + 1) * batch],
+                              dtype=torch.int64, device=dev)
+        params, opt, loss = step_fn(params, opt, {"tokens": tok}, s)
+        losses.append(float(loss))
+        if s % log_every == 0:
+            print(f"step {s:4d}  loss {losses[-1]:.4f}  "
+                  f"({(time.time() - t0) / (s + 1):.2f}s/step)", flush=True)
+    return {"arch": arch, "losses": losses,
+            "first": float(np.mean(losses[:5])),
+            "last": float(np.mean(losses[-5:]))}
 
 
 def client_arch_pool(cfg, mode: str, fracs=(0.25, 0.5, 0.75, 1.0)):
@@ -63,11 +116,15 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
            seq_len: int = 32, n_classes: int = 10, lr: float = 0.05,
            participation: float = 0.5, seed: int = 0, eval_every: int = 5,
            task: str = "cls", width_mults=(0.25, 0.5, 0.75, 1.0),
-           arch_mode: str = "width", driver: str = "resident",
-           merge_k: int = 0, staleness_max: int = 4,
-           async_deadline: float = float("inf"), update_dtype: str = "f32",
-           ckpt: Optional[str] = None, full_size: bool = False, device=None,
+           arch_mode: str = "width", agg_engine: str = "flat",
+           driver: str = "resident", merge_k: int = 0,
+           staleness_max: int = 4, async_deadline: float = float("inf"),
+           use_kernel: Optional[bool] = None, interpret: bool = False,
+           update_dtype: str = "f32", ckpt: Optional[str] = None,
+           full_size: bool = False, device=None, params=None,
            quiet: bool = False) -> dict:
+    """``params``: the initial global (for instance the reference's, through
+    ``params_from_numpy``); drawn from ``seed`` on the CPU if None."""
     from repro_torch.core.masking import apply_mask_tree, axis_mask_tree
     from repro_torch.core.server import (FLConfig, fl_round, make_client_specs,
                                          select_clients)
@@ -80,9 +137,10 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
     dev = resolve_device(device)
     cfg = fl_config(arch, task, n_classes, full_size)
     rng = np.random.default_rng(seed)
-    # drawn on the CPU, so a seed gives the same weights on every device
-    params = tree_map(lambda t: t.to(dev), model_mod.init_params(
-        cfg, torch.Generator().manual_seed(seed)))
+    if params is None:
+        # drawn on the CPU, so a seed gives the same weights on every device
+        params = tree_map(lambda t: t.to(dev), model_mod.init_params(
+            cfg, torch.Generator().manual_seed(seed)))
 
     archs = client_arch_pool(cfg, arch_mode, width_mults)
     parts = (part_mod.noniid_partition(n_clients, n_classes, seed=seed)
@@ -95,7 +153,13 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
     profiles = synthetic.make_class_profiles(n_classes, cfg.vocab_size, seed=seed)
     fl = FLConfig(participation=participation, local_steps=local_steps, lr=lr,
                   attack_lambda=attack_lambda, strategy=strategy, task=task,
-                  update_dtype=update_dtype, seed=seed)
+                  agg_engine=agg_engine, use_kernel=use_kernel,
+                  interpret=interpret, update_dtype=update_dtype, seed=seed)
+    if driver in ("resident", "async") and agg_engine != "flat":
+        if not quiet:
+            print(f"{driver} driver is flat-native; falling back to the "
+                  "per-round driver for agg_engine=tree", flush=True)
+        driver = "per-round"
     if update_dtype != "f32" and driver == "per-round":
         # as the reference CLI: quantized admission lives in the resident
         # driver's cohort pool, which the per-round driver does not keep
@@ -216,8 +280,7 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
 
 # flags of the JAX CLI that are not ported yet, with the value that means
 # "not used"; any other value raises
-_UNPORTED = {"steps": 200, "agg_engine": "flat", "mesh": "none",
-             "mesh_shape": None, "use_kernel": "auto", "interpret": False}
+_UNPORTED = {"mesh": "none", "mesh_shape": None}
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -263,25 +326,30 @@ def main(argv: Optional[list] = None) -> dict:
                          "PyTorch versions of the kernels)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    if args.mode != "fl":
-        raise NotImplementedError("--mode dense is not yet ported")
     used = [f for f, off in _UNPORTED.items() if getattr(args, f) != off]
     if used:
         raise NotImplementedError(
             "not yet ported: " + ", ".join("--" + f.replace("_", "-")
                                            for f in used))
-    res = run_fl(args.arch, args.rounds, args.clients, strategy=args.strategy,
-                 malicious_frac=args.malicious_frac,
-                 attack_lambda=args.attack_lambda, noniid=args.noniid,
-                 batch=args.batch, seq_len=args.seq_len,
-                 participation=args.participation,
-                 local_steps=args.local_steps, lr=args.lr,
-                 arch_mode=args.arch_mode, task=args.task,
-                 eval_every=args.eval_every, driver=args.driver,
-                 merge_k=args.merge_k, staleness_max=args.staleness_max,
-                 async_deadline=args.async_deadline,
-                 update_dtype=args.update_dtype, ckpt=args.ckpt,
-                 full_size=args.full_size, device=args.device)
+    if args.mode == "dense":
+        res = run_dense(args.arch, args.steps, args.batch, args.seq_len,
+                        full_size=args.full_size, device=args.device)
+    else:
+        res = run_fl(
+            args.arch, args.rounds, args.clients, strategy=args.strategy,
+            malicious_frac=args.malicious_frac,
+            attack_lambda=args.attack_lambda, noniid=args.noniid,
+            batch=args.batch, seq_len=args.seq_len,
+            participation=args.participation, local_steps=args.local_steps,
+            lr=args.lr, arch_mode=args.arch_mode, task=args.task,
+            eval_every=args.eval_every, agg_engine=args.agg_engine,
+            driver=args.driver, merge_k=args.merge_k,
+            staleness_max=args.staleness_max,
+            async_deadline=args.async_deadline,
+            use_kernel={"auto": None, "on": True,
+                        "off": False}[args.use_kernel],
+            interpret=args.interpret, update_dtype=args.update_dtype,
+            ckpt=args.ckpt, full_size=args.full_size, device=args.device)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

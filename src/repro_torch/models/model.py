@@ -101,6 +101,18 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     return cls_loss(logits, batch["labels"], class_mask)
 
 
+def loss_and_grad(params: Params, cfg: ArchConfig,
+                  batch: Dict[str, torch.Tensor], **kw):
+    """(loss, gradient tree) of ``loss_fn`` at ``params`` (``kw`` as
+    ``loss_fn`` takes them): ``jax.value_and_grad`` over a parameter
+    tree."""
+    paths = [p for p, _ in leaves_with_path(params)]
+    leaves = [x.detach().requires_grad_(True)
+              for _, x in leaves_with_path(params)]
+    loss = loss_fn(from_paths(paths, leaves), cfg, batch, **kw)
+    return loss.detach(), from_paths(paths, torch.autograd.grad(loss, leaves))
+
+
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------

@@ -3,7 +3,10 @@
 Prefill runs the chunked SSD (``kernels/ssd/ops.py::ssd``: the intra-chunk
 term on the CUDA kernel, the carry across chunks in PyTorch); decode is the
 exact single-step recurrence on an (n_heads, head_dim, d_state) state, in
-plain PyTorch as in the JAX package.
+plain PyTorch as in the JAX package.  Training (a forward under autograd
+whose inputs need a gradient) takes the plain chunked SSD
+(``kernels/ssd/ref.py::ssd_chunked_ref``), as the JAX package trains
+through its ``ssd_chunked_ref``: the kernel has no backward.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models.layers import dense_init, matmul, rms_norm
 
 
@@ -94,7 +98,11 @@ def ssd_forward(params: dict, u: torch.Tensor, cfg: SSMConfig, d_model: int,
     if head_mask is not None:
         xh = xh * head_mask[None, None, :, None].to(xh.dtype)
         dt = dt * head_mask[None, None, :]
-    y, hF = ssd_ops.ssd(xh, dt, A, B, C, cfg.chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (xh, dt, A, B, C)):
+        y, hF = ssd_ref.ssd_chunked_ref(xh, dt, A, B, C, cfg.chunk)
+    else:
+        y, hF = ssd_ops.ssd(xh, dt, A, B, C, cfg.chunk)
     y = y + (params["D"][None, None, :, None]
              * xh.to(torch.float32)).to(y.dtype)
     y = y.reshape(*y.shape[:2], di)

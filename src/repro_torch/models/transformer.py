@@ -27,7 +27,8 @@ Params = Dict[str, Any]
 _FAMILY_KINDS = {"dense": {"attn"}, "ssm": {"ssd"}}
 
 
-def _check_ported(cfg: ArchConfig) -> None:
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise unless every part of ``cfg`` is ported."""
     if not set(cfg.layer_pattern) <= _FAMILY_KINDS.get(cfg.family, set()):
         raise NotImplementedError(f"family {cfg.family!r} is not yet ported")
     if cfg.rope_theta <= 0.0 or cfg.norm != "rmsnorm" or cfg.logit_softcap:
@@ -41,7 +42,7 @@ def _is_shape(x) -> bool:
 
 def param_shapes(cfg: ArchConfig) -> Params:
     """Tree of parameter shapes (the structure ``init_params`` builds)."""
-    _check_ported(cfg)
+    check_ported(cfg)
     D, F, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
 
@@ -96,6 +97,9 @@ def _attn_apply(p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
     """Self attention. x: (B, S, D). Returns (out, new_cache|None)."""
     B, S, _ = x.shape
     hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    if H % K:   # the reference fails here too (its einsum's head sizes)
+        raise ValueError(f"{cfg.name}: n_heads {H} is not a multiple of "
+                         f"n_kv_heads {K}")
     q = matmul(x, p["wq"]).reshape(B, S, H, hd)
     k = matmul(x, p["wk"]).reshape(B, S, K, hd)
     v = matmul(x, p["wv"]).reshape(B, S, K, hd)

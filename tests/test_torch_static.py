@@ -44,6 +44,11 @@ def _np(x):
     return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
 
 
+# the dense registry entries copied besides smollm-135m
+_DENSE_COPIES = ("minicpm-2b", "tinyllama-1.1b", "codeqwen1.5-7b",
+                 "fedfa-paper-transformer")
+
+
 def _cfg_fields_equal(port: ArchConfig, ref) -> None:
     for f in dataclasses.fields(port):
         a, b = getattr(port, f.name), getattr(ref, f.name)
@@ -61,8 +66,17 @@ def _cfg_fields_equal(port: ArchConfig, ref) -> None:
 
 
 @pytest.mark.parametrize("which", ["full", "reduced", "fixture",
-                                   "mamba2-full", "mamba2-reduced"])
+                                   "mamba2-full", "mamba2-reduced"]
+                         + [f"{a}-{cut}" for a in _DENSE_COPIES
+                            for cut in ("full", "reduced")])
 def test_config_copy_matches_reference(which):
+    if which.rsplit("-", 1)[0] in _DENSE_COPIES:
+        arch, cut = which.rsplit("-", 1)
+        port, ref = get_arch(arch), jax_get_arch(arch)
+        if cut == "reduced":
+            port, ref = port.reduced(), ref.reduced()
+        _cfg_fields_equal(port, ref)
+        return
     ref = jax_get_arch("smollm-135m")
     mref = jax_get_arch("mamba2-130m")
     port = {"full": SMOLLM_135M, "reduced": SMOLLM_135M.reduced(),
