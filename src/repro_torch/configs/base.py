@@ -1,5 +1,5 @@
-"""Architecture configuration (own copy of ``repro.configs.base``, dense
-and ssm families only).  The field values, derived properties and
+"""Architecture configuration (own copy of ``repro.configs.base``: the
+dense, ssm and moe families).  The field values, derived properties and
 ``reduced()`` are held equal to the JAX package's by
 ``tests/test_torch_static.py``."""
 from __future__ import annotations
@@ -7,6 +7,18 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    # Snowflake-Arctic style: a dense FFN residual branch in parallel with MoE.
+    dense_residual: bool = False
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
 
 
 @dataclass(frozen=True)
@@ -28,7 +40,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # "dense" or "ssm" are ported
+    family: str                      # "dense", "ssm" and "moe" are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,6 +60,7 @@ class ArchConfig:
     norm_eps: float = 1e-5
     logit_softcap: Optional[float] = None
 
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
 
     # --- FedFA ---
@@ -110,7 +123,7 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: <=2 layers, d_model<=256."""
+        """Smoke-test variant: <=2 layers, d_model<=256, <=4 experts."""
         kw = dict(
             n_layers=min(self.n_layers, 2 * len(self.layer_pattern)),
             d_model=min(self.d_model, 256),
@@ -124,6 +137,10 @@ class ArchConfig:
             grad_accum=1,
             fsdp=False,
         )
+        if self.moe:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=min(self.moe.n_experts, 4),
+                d_ff_expert=min(self.moe.d_ff_expert, 256))
         if self.ssm:
             kw["ssm"] = dataclasses.replace(self.ssm, d_state=32, head_dim=32,
                                             chunk=32)

@@ -1,8 +1,8 @@
-"""Registry of the ported architectures (own copy of the dense and ssm
-entries of ``repro.configs.registry``, field for field)."""
+"""Registry of the ported architectures (own copy of the dense, ssm and
+moe entries of ``repro.configs.registry``, field for field)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchConfig, SSMConfig
+from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig
 
 MINICPM_2B = ArchConfig(
     name="minicpm-2b", family="dense", citation="arXiv:2404.06395",
@@ -16,6 +16,15 @@ SMOLLM_135M = ArchConfig(
     name="smollm-135m", family="dense", citation="hf:HuggingFaceTB/SmolLM-135M",
     n_layers=30, d_model=576, n_heads=9, n_kv_heads=3, d_ff=1536,
     vocab_size=49_152, d_head=64, tie_embeddings=True,
+)
+
+ARCTIC_480B = ArchConfig(
+    name="arctic-480b", family="moe", citation="hf:Snowflake/snowflake-arctic-base",
+    n_layers=35, d_model=7168, n_heads=56, n_kv_heads=8, d_ff=4864,
+    vocab_size=32_000, d_head=128,
+    moe=MoEConfig(n_experts=128, top_k=2, d_ff_expert=4864, dense_residual=True),
+    fsdp=True, serve_fsdp=True, grad_accum=128, optimizer="sgd",
+    prefill_chunk=2048,
 )
 
 MAMBA2_130M = ArchConfig(
@@ -34,6 +43,14 @@ TINYLLAMA_1B = ArchConfig(
     fsdp=True, grad_accum=2,
 )
 
+PHI35_MOE = ArchConfig(
+    name="phi3.5-moe-42b-a6.6b", family="moe", citation="hf:microsoft/Phi-3.5-MoE-instruct",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=6400,
+    vocab_size=32_064, d_head=128,
+    moe=MoEConfig(n_experts=16, top_k=2, d_ff_expert=6400),
+    fsdp=True, grad_accum=8, prefill_chunk=1024,
+)
+
 CODEQWEN_7B = ArchConfig(
     name="codeqwen1.5-7b", family="dense", citation="hf:Qwen/CodeQwen1.5-7B",
     n_layers=32, d_model=4096, n_heads=32, n_kv_heads=32, d_ff=13440,
@@ -50,9 +67,9 @@ FEDFA_PAPER_TRANSFORMER = ArchConfig(
     optimizer="sgd", learning_rate=0.1, weight_decay=0.0,
 )
 
-ARCHS = {a.name: a for a in (MINICPM_2B, SMOLLM_135M, MAMBA2_130M,
-                             TINYLLAMA_1B, CODEQWEN_7B,
-                             FEDFA_PAPER_TRANSFORMER)}
+ARCHS = {a.name: a for a in (MINICPM_2B, SMOLLM_135M, ARCTIC_480B,
+                             MAMBA2_130M, TINYLLAMA_1B, PHI35_MOE,
+                             CODEQWEN_7B, FEDFA_PAPER_TRANSFORMER)}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -33,7 +33,9 @@ def local_update(global_params: Params, cfg: ArchConfig, batches, *,
     st = init_opt(params, opt_name)
     losses = []
     for e in range(next(iter(batches.values())).shape[0]):
-        loss, grads = model_mod.loss_and_grad(
+        # the gradient of the total (task loss + MoE aux losses); the
+        # logged loss is the task's alone, as the reference logs it
+        (_, metrics), grads = model_mod.loss_and_grad(
             params, cfg, {k: v[e] for k, v in batches.items()},
             masks=masks, gates=gates, task=task, class_mask=class_mask)
         grads = mask_gradients(grads, ax)
@@ -43,5 +45,5 @@ def local_update(global_params: Params, cfg: ArchConfig, batches, *,
                 **({"momentum": momentum, "weight_decay": weight_decay}
                    if opt_name == "sgd" else {}))
             params = apply_mask_tree(params, ax)         # weight decay drift guard
-        losses.append(loss)
+        losses.append(metrics["loss"])
     return params, torch.stack(losses)

@@ -68,11 +68,37 @@ def _ssd_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, AX]:
             "out_proj": AX(inner, m.d_model)}
 
 
+def _moe_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, Any]:
+    """The MoE FFN's leaves: a weak client holds a prefix of the experts
+    (the router's columns, the expert matrices' leading axis); the experts'
+    ``d_ff_expert`` axis stays whole.  The dense residual branch is masked
+    by ``d_ff``, as in the reference, though it is ``d_ff_expert`` wide:
+    where the two differ (arctic-480b's ``reduced()`` cut, 512 against 256)
+    the reference fails on the mismatched shapes, and so does this, with
+    a ValueError that names the leaf (ROADMAP queue 3 item 20)."""
+    p = {"router": AX(m.d_model, m.experts),
+         "w_gate": AX(m.experts, m.d_model, None),
+         "w_up": AX(m.experts, m.d_model, None),
+         "w_down": AX(m.experts, None, m.d_model)}
+    if cfg.moe.dense_residual:
+        if m.d_ff is not None and m.d_ff.shape[-1] != cfg.moe.d_ff_expert:
+            raise ValueError(
+                f"{cfg.name}: ffn.dense is d_ff_expert "
+                f"{cfg.moe.d_ff_expert} wide, but its mask is d_ff "
+                f"{m.d_ff.shape[-1]} wide (the reference masks it by d_ff "
+                "and fails on the shapes too)")
+        p["dense"] = {"w_gate": AX(m.d_model, m.d_ff),
+                      "w_up": AX(m.d_model, m.d_ff),
+                      "w_down": AX(m.d_ff, m.d_model)}
+    return p
+
+
 def _block_ax(kind: str, cfg: ArchConfig, m: WidthMasks) -> Dict[str, Any]:
     if kind == "ssd":
         return {"ln": _norm_ax(cfg, m.d_model), "ssd": _ssd_ax(cfg, m)}
     return {"ln1": _norm_ax(cfg, m.d_model), "attn": _attn_ax(cfg, m),
-            "ln2": _norm_ax(cfg, m.d_model), "ffn": _ffn_ax(cfg, m)}
+            "ln2": _norm_ax(cfg, m.d_model),
+            "ffn": _moe_ax(cfg, m) if cfg.moe else _ffn_ax(cfg, m)}
 
 
 def axis_mask_tree(cfg: ArchConfig, m: WidthMasks) -> Params:

@@ -2,8 +2,9 @@
 // tensor cores.
 //   q (B, Sq, H, hd), k, v (B, Sk, K, hd), H % K == 0, all f32 or all bf16
 //   (element-type code 0 or 2) -> o (B, Sq, H, hd) in q's type.  Mask:
-//   kpos < Sk, kpos <= qpos if causal, kpos > qpos - window if window >= 0
-//   (positions counted from 0 on both axes).
+//   kpos < Sk, kpos <= qpos if causal, kpos > qpos - window if window >= 0,
+//   with key j at position j and query i at q_offset + i (q_offset >= 0: a
+//   chunk of a chunked prefill against the whole cache; 0 otherwise).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
 // flash_attention (_attn_kernel, its pallas_call at :90), with the
@@ -69,7 +70,8 @@
 // for them the reference's update is an exact no-op (m unchanged, corr =
 // 1, p = 0).  Ragged Sq and Sk are handled by zero-filled copies and the
 // mask; nothing is padded in device memory.  The heaviest causal q tiles
-// are launched first.
+// are launched first: every tile of a launch has the same q_offset, so a
+// tile's causal work still grows with its index.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -129,7 +131,7 @@ __global__ void __launch_bounds__(128 * kMaxHeadsPerBlock, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq,
                        int Sk, int H, int KH, int hd, int causal, int window,
-                       float scale, int W) {
+                       int q_offset, float scale, int W) {
   using P = Plan<T, HDP, BK>;
   constexpr int es = P::es;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -159,6 +161,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = kvh * G + (gy % blocks_per_kv) * W + wg;
   const int b = grp / gridDim.y;
   const int q0 = (gridDim.x - 1 - (int)(n / groups)) * kBQ;
+  const int p0 = q0 + q_offset;                 // row q0's position
   const int64_t q_stride = (int64_t)H * hd, kv_stride = (int64_t)KH * hd;
 
   // zero the stages: the columns past hd stay zero in every copy
@@ -214,10 +217,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // kv tiles [j_begin, j_end): those the mask leaves something of
   const int nk = (Sk + BK - 1) / BK;
-  const int j_end = causal ? min(nk, (q0 + kBQ - 1) / BK + 1) : nk;
+  const int j_end = causal ? min(nk, (p0 + kBQ - 1) / BK + 1) : nk;
   int j_begin = 0;
-  if (window >= 0 && q0 - window >= BK - 1)
-    j_begin = (q0 - window - (BK - 1)) / BK + 1;
+  if (window >= 0 && p0 - window >= BK - 1)
+    j_begin = (p0 - window - (BK - 1)) / BK + 1;
 
   // tile j's k and v rows into stage s, 16 bytes a thread, as one copy
   // group (empty past the last tile, so that every thread counts the same
@@ -253,7 +256,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
   const int r0 = 16 * warp + g;                 // rows r0 and r0 + 8
-  const int qpos0 = q0 + r0, qpos1 = qpos0 + 8;
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  const int qpos0 = row0 + q_offset, qpos1 = qpos0 + 8;
 
   for (int j = j_begin, it = 0; j < j_end; ++j, ++it) {
     const int s = it % P::kStages;
@@ -324,8 +328,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // (the mask is applied only to tiles it cuts: the last, ragged one,
     // the causal diagonal and the window's edge)
     const int k0 = j * BK;
-    const bool cut = k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
-                     (window >= 0 && k0 <= q0 + kBQ - 1 - window);
+    const bool cut = k0 + BK > Sk || (causal && k0 + BK - 1 > p0) ||
+                     (window >= 0 && k0 <= p0 + kBQ - 1 - window);
     uint64_t keep = ~0ull;
     float mx0 = kNegInf, mx1 = kNegInf;
     if (cut) {
@@ -428,12 +432,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (col >= hd) continue;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int qpos = half ? qpos1 : qpos0;
-      if (qpos >= Sq) continue;
+      const int row = half ? row1 : row0;
+      if (row >= Sq) continue;
       const float den = half ? den1 : den0;
       const float x0 = acc[4 * c + 2 * half] / den;
       const float x1 = acc[4 * c + 2 * half + 1] / den;
-      T* dst = og + (int64_t)qpos * q_stride + col;
+      T* dst = og + (int64_t)row * q_stride + col;
       if constexpr (P::kSplit) {
         *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
       } else {
@@ -446,7 +450,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HDP, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KH, int hd, int causal, int window,
-           float scale, cudaStream_t s) {
+           int q_offset, float scale, cudaStream_t s) {
   using P = Plan<T, HDP, BK>;
   const int G = H / KH;
   int W = 1;  // q heads per block: the most that divides G and fits
@@ -463,44 +467,45 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kBQ - 1) / kBQ, KH * (G / W), B);
   flash_attention_kernel<T, HDP, BK><<<grid, 128 * W, smem, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KH, hd,
-      causal, window, scale, W);
+      causal, window, q_offset, scale, W);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int BK32, int BK64, int BK128>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int Sq, int Sk, int H, int KH, int hd, int causal, int window,
-             float scale, cudaStream_t s) {
+             int q_offset, float scale, cudaStream_t s) {
   if (hd <= 32)
     return launch<T, 32, BK32>(q, k, v, o, B, Sq, Sk, H, KH, hd, causal,
-                               window, scale, s);
+                               window, q_offset, scale, s);
   if (hd <= 64)
     return launch<T, 64, BK64>(q, k, v, o, B, Sq, Sk, H, KH, hd, causal,
-                               window, scale, s);
+                               window, q_offset, scale, s);
   return launch<T, 128, BK128>(q, k, v, o, B, Sq, Sk, H, KH, hd, causal,
-                               window, scale, s);
+                               window, q_offset, scale, s);
 }
 
 }  // namespace
 
 // dtype: 0 = f32, 2 = bf16 (kernels/build.py DTYPE_CODES); window < 0 means
-// no window.  The wrapper checks shapes, types, 16-byte alignment of k and
-// v, and 8 <= hd <= 128 with hd % 8 == 0.
+// no window; a negative q_offset is refused.  The wrapper checks shapes,
+// types, 16-byte alignment of k and v, and 8 <= hd <= 128 with hd % 8 == 0.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int dtype, int B, int Sq, int Sk,
                                int H, int KH, int hd, int causal, int window,
-                               float scale, void* stream) {
-  if (hd < 8 || hd > kMaxHd || hd % 8 != 0 || KH < 1 || H % KH != 0)
+                               int q_offset, float scale, void* stream) {
+  if (hd < 8 || hd > kMaxHd || hd % 8 != 0 || KH < 1 || H % KH != 0 ||
+      q_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   // kv tile rows BK: f32 64, but 32 at hd > 64 (the split tiles' shared
   // memory); bf16 128, but 64 at hd > 64 (the registers of s and o)
   if (dtype == 0)
     return dispatch<float, 64, 64, 32>(q, k, v, o, B, Sq, Sk, H, KH, hd,
-                                       causal, window, scale, s);
+                                       causal, window, q_offset, scale, s);
   if (dtype == 2)
     return dispatch<__nv_bfloat16, 128, 128, 64>(q, k, v, o, B, Sq, Sk, H,
-                                                 KH, hd, causal, window, scale,
-                                                 s);
+                                                 KH, hd, causal, window,
+                                                 q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,7 +21,7 @@ from repro_torch.kernels.flash_attention import ref
 
 FLASH_ATTENTION = CudaKernel(
     "flash_attention.cu", "flash_attention",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
     + [ctypes.c_float, ctypes.c_void_p])
 
 # the kernel's head widths: multiples of 8 (rows of whole 16-byte chunks,
@@ -30,12 +30,14 @@ _MAX_HD = 128
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True,
-              window: Optional[int] = None) -> torch.Tensor:
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0) -> torch.Tensor:
     """Blockwise online-softmax attention: q (B, Sq, H, hd) against k, v
     (B, Sk, K, hd), H % K == 0, all f32 or all bf16 -> (B, Sq, H, hd) in
-    q's dtype.  ``causal`` keeps ``kpos <= qpos`` (both counted from 0),
-    ``window`` keeps ``kpos > qpos - window``; softmax scale hd**-0.5."""
+    q's dtype.  ``causal`` keeps ``kpos <= qpos``, ``window`` keeps
+    ``kpos > qpos - window``, with query i at position ``q_offset + i`` and
+    key j at j (a chunk of a chunked prefill against the whole cache);
+    softmax scale hd**-0.5."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"attention takes q (B, Sq, H, hd) and k, v "
                          f"(B, Sk, K, hd), got {tuple(q.shape)} and "
@@ -49,12 +51,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     check_input("q", q, q.dtype, (B, Sq, H, hd), q.device)
     check_input("k", k, q.dtype, (B, Sk, K, hd), q.device)
     check_input("v", v, q.dtype, (B, Sk, K, hd), q.device)
     if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window)
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
     if any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError("the flash-attention kernel has no "
                                   "backward; train through attend_blocked")
@@ -68,6 +73,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), DTYPE_CODES[q.dtype], B, Sq, Sk,
                            H, K, hd, int(causal),
-                           -1 if window is None else window, hd ** -0.5,
-                           stream_of(q))
+                           -1 if window is None else window, int(q_offset),
+                           hd ** -0.5, stream_of(q))
     return out

@@ -11,13 +11,27 @@ import torch
 NEG_INF = -2.0 ** 30
 
 
+def _keep(Sq: int, Sk: int, causal: bool, window: Optional[int],
+          q_offset: int, device) -> torch.Tensor:
+    """The (Sq, Sk) pairs attention keeps: causal ``kpos <= qpos``, window
+    ``kpos > qpos - window``, query i at position ``q_offset + i``."""
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True,
-                  window: Optional[int] = None) -> torch.Tensor:
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Sk, K, hd), each kv head repeated H/K
     times.  Logits in f32 scaled by hd**-0.5 after the product, masked
-    (causal ``kpos <= qpos``, window ``kpos > qpos - window``) to NEG_INF;
-    softmax and the value product in f32; the output in q's dtype."""
+    (``_keep``) to NEG_INF; softmax and the value product in f32; the
+    output in q's dtype."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     rep = H // K
@@ -25,13 +39,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     v = torch.repeat_interleave(v, rep, dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * hd ** -0.5
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
+    mask = _keep(Sq, Sk, causal, window, q_offset, q.device)
     logits = torch.where(mask, logits, torch.full((), NEG_INF,
                                                   device=q.device))
     probs = torch.softmax(logits, dim=-1)
@@ -63,6 +71,7 @@ def split_tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor,
 def attention_split_tf32_ref(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              window: Optional[int] = None,
+                             q_offset: int = 0,
                              terms: int = 3) -> torch.Tensor:
     """``attention_ref`` on f32 inputs with both products taken as the
     CUDA kernel's f32 route takes them (``split_tf32_product``), q scaled
@@ -74,13 +83,7 @@ def attention_split_tf32_ref(q: torch.Tensor, k: torch.Tensor,
     v = torch.repeat_interleave(v.to(torch.float32), rep, dim=2)
     logits = split_tf32_product("bqhd,bkhd->bhqk",
                                 q.to(torch.float32) * hd ** -0.5, k, terms)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
+    mask = _keep(Sq, Sk, causal, window, q_offset, q.device)
     logits = torch.where(mask, logits, torch.full((), NEG_INF,
                                                   device=q.device))
     probs = torch.softmax(logits, dim=-1)

@@ -166,7 +166,7 @@ def flash_times(gen) -> dict:
             fn = variant_library(FLASH_ATTENTION, name, edits)
             run = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              o.data_ptr(), code, 8, 4096, 4096, 9, 3, 64, 1,
-                             -1, 0.125, stream)
+                             -1, 0, 0.125, stream)
             if run() != 0:
                 raise RuntimeError(f"flash_attention {name!r} did not launch")
             out[f"{str(dtype)[6:]}: {name}"] = time_ms(run)

@@ -2,8 +2,10 @@
 
     python -m repro_torch.launch.profile [--clients 8] [--top 15]
         [--update-dtype f32|bf16|int8] [--arch smollm-135m|mamba2-130m]
-    python -m repro_torch.launch.profile --serve mamba2-130m|smollm-135m
-        [--prompt-len 1024] [--top 15]
+    python -m repro_torch.launch.profile --serve mamba2-130m|smollm-135m|...
+        [--prompt-len 1024] [--batch 8] [--n-layers L] [--top 15]
+    python -m repro_torch.launch.profile --chunked --arch ARCH
+        [--prompt-len 1024] [--batch 8] [--n-layers L] [--top 15]
     python -m repro_torch.launch.profile --dense smollm-135m [--top 15]
 
 Builds one round of the main path at full size (smollm-135m, 8 clients of
@@ -14,8 +16,11 @@ aggregation (``flat.aggregate_buffers``) with CUDA events, and traces one
 more round with ``torch.profiler``: the operators with the most device
 time, the number of device kernels, and the device's busy share of the
 traced window.  With ``--serve`` it traces instead ``launch.serve``'s
-engine at full size: the prefill of 8 prompts and then 8 decode steps
-(after a warm-up request).  With ``--dense`` it traces one full-size
+engine at full size: the prefill of ``--batch`` prompts and then 8 decode
+steps (after a warm-up request).  With ``--chunked`` it traces one
+``make_prefill_step`` of ``--arch`` at full size, in chunks of its
+``prefill_chunk`` (after a warm-up step).  Both take ``--n-layers`` to cut
+the full-size model's depth.  With ``--dense`` it traces one full-size
 ``--mode dense`` train step (batch 8, sequence 64, after a warm-up step)
 and its forward and backward alone, the rest being the optimizer.
 Prints one JSON object.  Needs a CUDA device.
@@ -179,20 +184,43 @@ def _report(t: dict, top: int) -> dict:
                         for k, (c, ms) in rows[:top]]}
 
 
-def serving(arch: str, prompt_len: int, top: int) -> dict:
-    """Traces of ``launch.serve`` at full size (its weights and prompts,
-    batch 8), after its own untraced request: the prefill is one
-    ``generate`` of one token; the decode is one ``generate`` of
-    1 + ``DECODE_STEPS`` tokens less that prefill's trace."""
+def serving(arch: str, prompt_len: int, top: int, batch: int = BATCH,
+            n_layers: Optional[int] = None) -> dict:
+    """Traces of ``launch.serve`` at full size (its weights and prompts;
+    ``n_layers``, if given, cuts its depth), after its own untraced request:
+    the prefill is one ``generate`` of one token; the decode is one
+    ``generate`` of 1 + ``DECODE_STEPS`` tokens less that prefill's
+    trace."""
     from repro_torch.launch import serve
-    out = serve.serve(arch, BATCH, prompt_len, 1 + DECODE_STEPS,
-                      full_size=True)
+    out = serve.serve(arch, batch, prompt_len, 1 + DECODE_STEPS,
+                      full_size=True, n_layers=n_layers)
     gen = lambda n: lambda: out["engine"].generate(out["prompts"], max_new=n)
     prefill = _trace([gen(1)])
     both = _trace([gen(1 + DECODE_STEPS)])
     return {"prefill": _report(prefill, top),
             "decode": {**_report(_minus(both, prefill), top),
                        "steps": DECODE_STEPS}}
+
+
+def chunked(arch: str, prompt_len: int, top: int, batch: int = BATCH,
+            n_layers: Optional[int] = None) -> dict:
+    """The trace of one ``make_prefill_step`` (in chunks of
+    ``prefill_chunk``) of ``batch`` synthetic prompts of ``prompt_len`` on
+    ``launch.serve``'s full-size model (``n_layers``, if given, cuts its
+    depth), after an untraced one."""
+    from repro_torch.data import synthetic
+    from repro_torch.launch import serve, steps
+    cfg, params = serve.build(arch, full_size=True, n_layers=n_layers)
+    tok = torch.as_tensor(synthetic.lm_stream(cfg.vocab_size, batch,
+                                              prompt_len, seed=0),
+                          device="cuda")
+    step = steps.make_prefill_step(cfg)
+
+    @torch.no_grad()
+    def run():
+        step(params, {"tokens": tok})
+    run()
+    return {**_report(_trace([run]), top), "chunk": cfg.prefill_chunk}
 
 
 def dense(arch: str, top: int, batch: int = 8, seq_len: int = 64) -> dict:
@@ -237,14 +265,28 @@ def main(argv: Optional[list] = None) -> dict:
                     help="the model of the traced round")
     ap.add_argument("--dense", default=None,
                     help="trace a dense train step of this arch instead")
+    ap.add_argument("--chunked", action="store_true",
+                    help="trace a chunked prefill of --arch instead")
+    ap.add_argument("--batch", type=int, default=BATCH,
+                    help="prompts of --serve and --chunked")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut --serve's and --chunked's model to this depth")
     args = ap.parse_args(argv)
-    if args.dense:
+    if args.chunked:
+        out = {"card": torch.cuda.get_device_name(0), "arch": args.arch,
+               "batch": args.batch, "prompt_len": args.prompt_len,
+               "n_layers": args.n_layers,
+               **chunked(args.arch, args.prompt_len, args.top, args.batch,
+                         args.n_layers)}
+    elif args.dense:
         out = {"card": torch.cuda.get_device_name(0), "arch": args.dense,
                "batch": BATCH, "seq_len": 64, **dense(args.dense, args.top)}
     elif args.serve:
         out = {"card": torch.cuda.get_device_name(0), "arch": args.serve,
-               "batch": BATCH, "prompt_len": args.prompt_len,
-               **serving(args.serve, args.prompt_len, args.top)}
+               "batch": args.batch, "prompt_len": args.prompt_len,
+               "n_layers": args.n_layers,
+               **serving(args.serve, args.prompt_len, args.top, args.batch,
+                         args.n_layers)}
     else:
         r = full_round(args.clients, update_dtype=args.update_dtype,
                        arch=args.arch)

@@ -1,15 +1,15 @@
 """Batched serving: prefill, then greedy or temperature decode over a KV
 (or SSM state) cache.
 
-    python -m repro_torch.launch.serve [--arch smollm-135m|mamba2-130m]
+    python -m repro_torch.launch.serve [--arch smollm-135m|mamba2-130m|...]
         [--batch 8] [--prompt-len 32] [--max-new 32] [--full-size]
-        [--device cpu]
+        [--n-layers L] [--device cpu]
 
 Runs on ``cuda`` unless ``--device`` says otherwise.  The model is cut to
-``reduced()`` size, as the JAX CLI cuts it, unless ``--full-size``; its
-weights are drawn from seed 0 and it decodes greedily.  Prints one JSON
-line: the timings, tokens/s and peak device memory, and the first two
-sequences.
+``reduced()`` size, as the JAX CLI cuts it, unless ``--full-size``, and to
+``--n-layers`` layers where that is given; its weights are drawn from seed
+0 and it decodes greedily.  Prints one JSON line: the timings, tokens/s and
+peak device memory, and the first two sequences.
 """
 from __future__ import annotations
 
@@ -87,23 +87,37 @@ class Engine:
         return torch.multinomial(probs, 1, generator=gen)
 
 
-def serve(arch: str = "smollm-135m", batch: int = 8, prompt_len: int = 32,
-          max_new: int = 32, *, full_size: bool = False,
-          device=None) -> dict:
-    """The CLI's run: a model drawn from seed 0, ``batch`` synthetic
-    prompts, one greedy ``generate``.  Returns the tokens, the timings and, on a
-    card, its peak memory."""
+def build(arch: str, *, full_size: bool = False,
+          n_layers: Optional[int] = None, device=None) -> tuple:
+    """``arch``'s config (``reduced()`` unless ``full_size``; ``n_layers``,
+    if given, cuts its depth) and its weights drawn from seed 0, on
+    ``device``."""
     from repro_torch.configs import get_arch
-    from repro_torch.data import synthetic
     from repro_torch.tree import tree_map
 
-    dev = resolve_device(device)
     cfg = get_arch(arch)
     if not full_size:
         cfg = cfg.reduced()
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     # drawn on the CPU, so a seed gives the same weights on every device
-    params = tree_map(lambda t: t.to(dev), model_mod.init_params(
-        cfg, torch.Generator().manual_seed(0)))
+    params = tree_map(lambda t: t.to(resolve_device(device)),
+                      model_mod.init_params(cfg,
+                                            torch.Generator().manual_seed(0)))
+    return cfg, params
+
+
+def serve(arch: str = "smollm-135m", batch: int = 8, prompt_len: int = 32,
+          max_new: int = 32, *, full_size: bool = False,
+          n_layers: Optional[int] = None, device=None) -> dict:
+    """The CLI's run: a model from ``build``, ``batch`` synthetic prompts,
+    one greedy ``generate``.  Returns the tokens, the timings and, on a
+    card, its peak memory."""
+    from repro_torch.data import synthetic
+
+    dev = resolve_device(device)
+    cfg, params = build(arch, full_size=full_size, n_layers=n_layers,
+                        device=dev)
     eng = Engine(cfg, params, capacity=prompt_len + max_new + 8,
                  window=cfg.attn_window)
     prompts = synthetic.lm_stream(cfg.vocab_size, batch, prompt_len, seed=0)
@@ -111,7 +125,8 @@ def serve(arch: str = "smollm-135m", batch: int = 8, prompt_len: int = 32,
         torch.cuda.reset_peak_memory_stats(dev)
     tokens = eng.generate(prompts, max_new=max_new)
     t = eng.timing
-    out = {"arch": arch, "full_size": full_size, "device": str(dev),
+    out = {"arch": arch, "full_size": full_size, "n_layers": cfg.n_layers,
+           "device": str(dev),
            "batch": batch, "prompt_len": prompt_len, "max_new": max_new,
            "prefill_ms": t["prefill_s"] * 1e3,
            "decode_ms_per_token": (t["decode_s"] * 1e3
@@ -132,11 +147,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--full-size", action="store_true",
                     help="the published configuration, not reduced()")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the model to this many layers")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
     out = serve(args.arch, args.batch, args.prompt_len, args.max_new,
-                full_size=args.full_size, device=args.device)
+                full_size=args.full_size, n_layers=args.n_layers,
+                device=args.device)
     print(json.dumps({**{k: v for k, v in out.items()
                          if k not in ("tokens", "engine", "prompts")},
                       "first": out["tokens"][:2].tolist()}), flush=True)

@@ -4,6 +4,8 @@
 ``make_train_step`` accumulates ``cfg.grad_accum`` microbatches in order
 (a Python loop where the JAX package scans); with SGD the microbatch
 gradients go straight into the momentum buffer, as the reference does.
+Its loss is the total that it differentiates (the MoE aux losses
+included), as the reference's step returns it.
 """
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ def make_train_step(cfg: ArchConfig, total_steps: int = 1000):
         A = cfg.grad_accum
         lr = sched(step)
         if A == 1:
-            loss, grads = model_mod.loss_and_grad(params, cfg, batch,
-                                                  task="lm")
+            (loss, _), grads = model_mod.loss_and_grad(params, cfg, batch,
+                                                       task="lm")
             with torch.no_grad():
                 params, opt_state = opt_update(cfg.optimizer, params, grads,
                                                opt_state, lr)
@@ -50,8 +52,8 @@ def make_train_step(cfg: ArchConfig, total_steps: int = 1000):
                     + cfg.weight_decay * p.to(torch.float32),
                     opt_state["m"], params)
             for mb in micro:
-                loss, g = model_mod.loss_and_grad(params, cfg, mb,
-                                                  task="lm")
+                (loss, _), g = model_mod.loss_and_grad(params, cfg, mb,
+                                                       task="lm")
                 with torch.no_grad():
                     m_acc = tree_map(lambda m, gg: m + gg / A, m_acc, g)
                 lsum = lsum + loss
@@ -69,7 +71,8 @@ def make_train_step(cfg: ArchConfig, total_steps: int = 1000):
             g_acc = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
         for mb in micro:
-            loss, g = model_mod.loss_and_grad(params, cfg, mb, task="lm")
+            (loss, _), g = model_mod.loss_and_grad(params, cfg, mb,
+                                                   task="lm")
             with torch.no_grad():
                 g_acc = tree_map(torch.add, g_acc, g)
             lsum = lsum + loss

@@ -181,7 +181,7 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
 
     @torch.no_grad()
     def global_acc(p):
-        logits = model_mod.forward(p, cfg, {"tokens": test["tokens"]})
+        logits, _ = model_mod.forward(p, cfg, {"tokens": test["tokens"]})
         pred = torch.argmax(torch.mean(logits[..., :n_classes], dim=1), -1)
         return float(torch.mean((pred == test["labels"]).to(torch.float32)))
 
@@ -192,9 +192,9 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
             s = specs[ci]
             masks = s.arch.masks(cfg).to(dev)
             pm = apply_mask_tree(p, axis_mask_tree(cfg, masks))
-            logits = model_mod.forward(pm, cfg, {"tokens": d["tokens"]},
-                                       masks=masks,
-                                       gates=s.arch.gates(cfg).to(dev))
+            logits, _ = model_mod.forward(pm, cfg, {"tokens": d["tokens"]},
+                                          masks=masks,
+                                          gates=s.arch.gates(cfg).to(dev))
             lg = torch.mean(logits[..., :n_classes], dim=1)
             if s.class_mask is not None:
                 cm = torch.as_tensor(s.class_mask[:n_classes], device=dev)

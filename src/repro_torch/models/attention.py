@@ -7,9 +7,10 @@ it blocked attention: the hand-written CUDA flash-attention kernel
 (``kernels/flash_attention``) on the card when nothing needs a gradient
 (prefill), else ``attend_blocked``, the online softmax over kv blocks in
 plain PyTorch (the CPU, and training on the card, which the JAX package
-also trains through its XLA ``attend_blocked``).  Ring caches, sliding
-windows on the serving path and ``q_offset`` (chunked prefill) are not yet
-ported."""
+also trains through its XLA ``attend_blocked``).  ``q_offset`` places the
+queries at positions q_offset.. against keys from 0 (a chunk of a chunked
+prefill against the whole cache).  Ring caches and sliding windows on the
+serving path are not yet ported."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -69,34 +70,45 @@ def _apply_head_mask(out: torch.Tensor,
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True, window: Optional[int] = None,
-           head_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+           head_mask: Optional[torch.Tensor] = None,
+           q_offset: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Sk, K, hd).  ``head_mask`` (H,) zeroes
-    masked heads; ``window`` limits causal attention to window-1 back.
+    masked heads; ``window`` limits causal attention to window-1 back;
+    query i sits at position ``q_offset + i``.
 
     Long sequences (Sq·Sk > 2048², Sq > 1) never build the S² logits: on a
     CUDA tensor with no input that requires grad they go to the flash
-    kernel, otherwise to :func:`attend_blocked`."""
+    kernel, otherwise to :func:`attend_blocked`.  The kernel takes one
+    dtype: a chunked prefill's bf16 cache meets f32 queries, so all three
+    go in at their common dtype (bf16 -> f32 is exact, and the reference's
+    blocked path upcasts k and v to f32 in every kv step) and the output
+    comes back in q's."""
     Sq, Sk = q.shape[1], k.shape[1]
     if Sq * Sk > _BLOCKED_THRESHOLD and Sq > 1:
         if q.device.type == "cuda" and not any(
                 t.requires_grad for t in (q, k, v)):
-            return _apply_head_mask(
-                flash_ops.attention(q, k, v, causal=causal, window=window),
-                head_mask)
+            dt = torch.promote_types(q.dtype, k.dtype)
+            out = flash_ops.attention(q.to(dt), k.to(dt), v.to(dt),
+                                      causal=causal, window=window,
+                                      q_offset=q_offset)
+            return _apply_head_mask(out.to(q.dtype), head_mask)
         return attend_blocked(q, k, v, causal=causal, window=window,
-                              head_mask=head_mask)
+                              head_mask=head_mask, q_offset=q_offset)
     return _attend_dense(q, k, v, causal=causal, window=window,
-                         head_mask=head_mask)
+                         head_mask=head_mask, q_offset=q_offset)
 
 
-def _attend_dense(q, k, v, *, causal=True, window=None, head_mask=None):
+def _attend_dense(q, k, v, *, causal=True, window=None, head_mask=None,
+                  q_offset: int = 0):
+    """The S² softmax: logits and softmax in f32, the probabilities rounded
+    to v's dtype before the value product, as the reference rounds them."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     k = _expand_kv(k, H)
     v = _expand_kv(v, H)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * hd ** -0.5
-    qpos = torch.arange(Sq, device=q.device)[:, None]
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -136,14 +148,16 @@ def _kv_step(m_run, l_run, acc, qi, kj, vj, mask, scale: float, fast: bool):
 
 def attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: Optional[int] = None,
-                   head_mask: Optional[torch.Tensor] = None, bq: int = 512,
+                   head_mask: Optional[torch.Tensor] = None,
+                   q_offset: int = 0, bq: int = 512,
                    bk: int = 1024) -> torch.Tensor:
     """Online-softmax blocked attention in plain PyTorch: the counterpart
     of the reference's ``attend_blocked``, whose live logits are
     O(bq·bk) instead of O(Sq·Sk).  Exact, not approximate.  f32 inputs
     scale q before the product; bf16 inputs keep bf16 operands
     (accumulated in f32) and scale after it.  With a window, a q block
-    visits only the kv blocks it can overlap.  Under autograd each kv step
+    visits only the kv blocks it can overlap (its first one moves with
+    ``q_offset``).  Under autograd each kv step
     is recomputed in the backward (``checkpoint``), as the reference wraps
     it in ``jax.checkpoint``."""
     B, Sq, H, hd = q.shape
@@ -168,11 +182,12 @@ def attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = torch.zeros((B, Kh, G, bq, hd), **f32)
         if window is not None and causal:
             nke = min(nk, (bq + window) // bk + 2)
-            start = min(max((i * bq - window) // bk, 0), nk - nke)
+            start = min(max((i * bq + q_offset - window) // bk, 0),
+                        nk - nke)
             steps = range(start, start + nke)
         else:
             steps = range(nk)
-        qpos = i * bq + torch.arange(bq, device=dev)[:, None]
+        qpos = i * bq + q_offset + torch.arange(bq, device=dev)[:, None]
         for j in steps:
             kpos = j * bk + torch.arange(bk, device=dev)[None, :]
             mask = kpos < Sk

@@ -26,6 +26,7 @@ class WidthSpec:
     n_heads: int
     n_kv_heads: int
     d_ff: int
+    n_experts: int = 0
     ssm_heads: int = 0
 
 
@@ -40,8 +41,10 @@ def width_spec(cfg: ArchConfig, w: float) -> WidthSpec:
         kv = heads = 0
     d_model = max(16, int(w * cfg.d_model) // 8 * 8) if w < 1.0 else cfg.d_model
     d_ff = max(8, int(w * cfg.d_ff) // 8 * 8) if (cfg.d_ff and w < 1.0) else cfg.d_ff
+    n_exp = (max(cfg.moe.top_k, int(round(w * cfg.moe.n_experts)))
+             if cfg.moe else 0)
     sh = max(1, int(round(w * cfg.ssm.n_heads(cfg.d_model)))) if cfg.ssm else 0
-    return WidthSpec(d_model, heads, kv, d_ff, sh)
+    return WidthSpec(d_model, heads, kv, d_ff, n_exp, sh)
 
 
 def _prefix(n_total: int, n_active: int) -> torch.Tensor:
@@ -55,6 +58,7 @@ class WidthMasks:
     heads: Optional[torch.Tensor]
     kv_heads: Optional[torch.Tensor]
     d_ff: Optional[torch.Tensor]
+    experts: Optional[torch.Tensor] = None
     ssm_heads: Optional[torch.Tensor] = None
 
     def _map(self, fn) -> "WidthMasks":
@@ -85,6 +89,7 @@ def width_masks(cfg: ArchConfig, w: float) -> WidthMasks:
         heads=_prefix(cfg.n_heads, s.n_heads) if cfg.n_heads else None,
         kv_heads=_prefix(cfg.n_kv_heads, s.n_kv_heads) if cfg.n_kv_heads else None,
         d_ff=_prefix(cfg.d_ff, s.d_ff) if cfg.d_ff else None,
+        experts=_prefix(cfg.moe.n_experts, s.n_experts) if cfg.moe else None,
         ssm_heads=(_prefix(cfg.ssm.n_heads(cfg.d_model), s.ssm_heads)
                    if cfg.ssm else None))
 

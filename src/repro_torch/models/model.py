@@ -17,8 +17,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_norm, matmul
 from repro_torch.models.masks import WidthMasks, full_masks
-from repro_torch.models.transformer import (_is_shape, init_params,  # noqa: F401
-                                            param_shapes, stage_apply)
+from repro_torch.models.transformer import (AUX_LOSSES, _is_shape,  # noqa: F401
+                                            init_params, param_shapes,
+                                            stage_apply)
 from repro_torch.tree import from_paths, leaves_with_path, tree_map
 
 Params = Dict[str, Any]
@@ -45,18 +46,23 @@ def _head(params: Params, cfg: ArchConfig, x: torch.Tensor, m: WidthMasks):
 
 def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             masks: Optional[WidthMasks] = None,
-            gates: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Training / evaluation forward: batch {'tokens': (B, S)} -> logits
-    (B, S, V).  ``gates`` flex stage 0's depth; later stages stay full."""
+            gates: Optional[torch.Tensor] = None):
+    """Training / evaluation forward: batch {'tokens': (B, S)} -> (logits
+    (B, S, V), aux losses {'lb_loss', 'z_loss'}: the MoE blocks' sums, 0
+    without them).  ``gates`` flex stage 0's depth; later stages stay
+    full."""
     device = params["embed"].device
     m = masks or full_masks(cfg).to(device)
     x = _embed(params, batch["tokens"], m)
     positions = torch.arange(x.shape[1], device=device)[None]
+    aux_tot = {name: torch.zeros((), dtype=torch.float32, device=device)
+               for name in AUX_LOSSES}
     for i, g in enumerate(_stage_gates(cfg, gates, device)):
-        x, _ = stage_apply(params["stages"][i], cfg.stages()[i][0], x, cfg, m,
-                           gates=g, positions=positions,
-                           window=cfg.attn_window)
-    return _head(params, cfg, x, m)
+        x, _, aux = stage_apply(params["stages"][i], cfg.stages()[i][0], x,
+                                cfg, m, gates=g, positions=positions,
+                                window=cfg.attn_window)
+        aux_tot = {k: v + aux[k] for k, v in aux_tot.items()}
+    return _head(params, cfg, x, m), aux_tot
 
 
 def _stage_gates(cfg: ArchConfig, gates0: Optional[torch.Tensor], device):
@@ -93,24 +99,31 @@ def cls_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
-            masks=None, gates=None, task: str = "lm",
-            class_mask=None) -> torch.Tensor:
-    logits = forward(params, cfg, batch, masks=masks, gates=gates)
+            masks=None, gates=None, task: str = "lm", class_mask=None):
+    """(total, metrics): the task's loss plus the aux losses, which is what
+    training differentiates, and {'loss': the task's loss alone, 'lb_loss',
+    'z_loss'}."""
+    logits, aux = forward(params, cfg, batch, masks=masks, gates=gates)
     if task == "lm":
-        return lm_loss(logits, batch["tokens"], class_mask)
-    return cls_loss(logits, batch["labels"], class_mask)
+        base = lm_loss(logits, batch["tokens"], class_mask)
+    else:
+        base = cls_loss(logits, batch["labels"], class_mask)
+    total = base + aux["lb_loss"] + aux["z_loss"]
+    return total, {"loss": base, **aux}
 
 
 def loss_and_grad(params: Params, cfg: ArchConfig,
                   batch: Dict[str, torch.Tensor], **kw):
-    """(loss, gradient tree) of ``loss_fn`` at ``params`` (``kw`` as
-    ``loss_fn`` takes them): ``jax.value_and_grad`` over a parameter
-    tree."""
+    """((total, metrics), gradient tree of the total) of ``loss_fn`` at
+    ``params`` (``kw`` as ``loss_fn`` takes them):
+    ``jax.value_and_grad(has_aux=True)`` over a parameter tree."""
     paths = [p for p, _ in leaves_with_path(params)]
     leaves = [x.detach().requires_grad_(True)
               for _, x in leaves_with_path(params)]
-    loss = loss_fn(from_paths(paths, leaves), cfg, batch, **kw)
-    return loss.detach(), from_paths(paths, torch.autograd.grad(loss, leaves))
+    total, metrics = loss_fn(from_paths(paths, leaves), cfg, batch, **kw)
+    grads = torch.autograd.grad(total, leaves)
+    return ((total.detach(), {k: v.detach() for k, v in metrics.items()}),
+            from_paths(paths, grads))
 
 
 # ---------------------------------------------------------------------------
@@ -146,9 +159,15 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             chunk_size: Optional[int] = None):
     """Process the prompt; returns (last-position logits (B, 1, V), caches).
     The caches hold ``capacity`` positions (the prompt's length if None),
-    stored in ``cache_dtype`` (SSM states stay f32)."""
-    if chunk_size is not None:
-        raise NotImplementedError("chunked prefill is not yet ported")
+    stored in ``cache_dtype`` (SSM states stay f32).
+
+    ``chunk_size``: chunked prefill, the prompt in chunks at offsets
+    0, chunk, 2·chunk, ..., each against the cache so far (its attention
+    against the whole cache, its MoE dispatch over the chunk's tokens
+    alone).  As in the reference, the prompt goes in one shot instead with
+    a window, when the chunk does not divide it, or when it is no longer
+    than one chunk.  An SSD block starts every chunk from a zero state, as
+    the reference's does (ROADMAP queue 3 item 21)."""
     device = params["embed"].device
     m = masks or full_masks(cfg).to(device)
     tokens = batch["tokens"]
@@ -156,12 +175,21 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     x = _embed(params, tokens, m)
     caches = init_caches(params, cfg, B, capacity or S, dtype=cache_dtype)
     win = window if window is not None else cfg.attn_window
-    positions = torch.arange(S, device=device)[None]
-    for i, g in enumerate(_stage_gates(cfg, gates, device)):
-        x, _ = stage_apply(params["stages"][i], cfg.stages()[i][0], x, cfg, m,
-                           gates=g, positions=positions, window=win,
-                           caches=caches[i])
-    return _head(params, cfg, x[:, -1:], m), caches
+    gs = _stage_gates(cfg, gates, device)
+    if chunk_size is None or win is not None or S % chunk_size \
+            or S <= chunk_size:
+        chunk_size, starts = S, [None]
+    else:
+        starts = range(0, S, chunk_size)
+    for off in starts:
+        x_c = x if off is None else x[:, off:off + chunk_size]
+        positions = (off or 0) + torch.arange(chunk_size, device=device)[None]
+        for i, g in enumerate(gs):
+            x_c, _, _ = stage_apply(params["stages"][i], cfg.stages()[i][0],
+                                    x_c, cfg, m, gates=g, positions=positions,
+                                    window=win, caches=caches[i],
+                                    chunk_offset=off)
+    return _head(params, cfg, x_c[:, -1:], m), caches
 
 
 def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor, caches,
@@ -177,9 +205,9 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor, caches,
     positions = pos.reshape(1, 1).expand(token.shape[0], 1)
     win = window if window is not None else cfg.attn_window
     for i, g in enumerate(_stage_gates(cfg, gates, device)):
-        x, _ = stage_apply(params["stages"][i], cfg.stages()[i][0], x, cfg, m,
-                           gates=g, positions=positions, window=win,
-                           caches=caches[i], decode=True)
+        x, _, _ = stage_apply(params["stages"][i], cfg.stages()[i][0], x,
+                              cfg, m, gates=g, positions=positions,
+                              window=win, caches=caches[i], decode=True)
     return _head(params, cfg, x, m), caches
 
 

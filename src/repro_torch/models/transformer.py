@@ -1,5 +1,6 @@
-"""Decoder stack of dense (attention + FFN) and Mamba-2 SSD blocks, FedFA
-width-masked and depth-gated, with serving caches.
+"""Decoder stack of attention blocks (with a dense or a mixture-of-experts
+FFN) and Mamba-2 SSD blocks, FedFA width-masked and depth-gated, with
+serving caches.
 
 Every block is residual (``x + gate_r * f_r(x)``), the property FedFA's
 layer grafting relies on (paper Appendix B).  Parameters are nested
@@ -9,12 +10,13 @@ stacked the same way.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ACTIVATIONS, apply_norm, apply_rope,
                                        dense_init, matmul)
@@ -24,7 +26,7 @@ from repro_torch.tree import from_paths, leaves_with_path, tree_map
 Params = Dict[str, Any]
 
 
-_FAMILY_KINDS = {"dense": {"attn"}, "ssm": {"ssd"}}
+_FAMILY_KINDS = {"dense": {"attn"}, "ssm": {"ssd"}, "moe": {"attn"}}
 
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -40,6 +42,12 @@ def _is_shape(x) -> bool:
     return isinstance(x, tuple) and all(isinstance(d, int) for d in x)
 
 
+def _stacked(shapes: Params, r: int) -> Params:
+    """A tree of shapes with a leading repeat axis of ``r``."""
+    return {k: _stacked(v, r) if isinstance(v, dict) else (r,) + v
+            for k, v in shapes.items()}
+
+
 def param_shapes(cfg: ArchConfig) -> Params:
     """Tree of parameter shapes (the structure ``init_params`` builds)."""
     check_ported(cfg)
@@ -51,11 +59,15 @@ def param_shapes(cfg: ArchConfig) -> Params:
             return {"ln": {"scale": (r, D)},
                     "ssd": {k: (r,) + s for k, s in
                             ssm_mod.ssd_param_shapes(D, cfg.ssm).items()}}
+        if cfg.moe:
+            ffn = _stacked(moe_mod.moe_param_shapes(D, cfg.moe), r)
+        else:
+            ffn = {"w_gate": (r, D, F), "w_up": (r, D, F),
+                   "w_down": (r, F, D)}
         return {"ln1": {"scale": (r, D)}, "ln2": {"scale": (r, D)},
                 "attn": {"wq": (r, D, H * hd), "wk": (r, D, K * hd),
                          "wv": (r, D, K * hd), "wo": (r, H * hd, D)},
-                "ffn": {"w_gate": (r, D, F), "w_up": (r, D, F),
-                        "w_down": (r, F, D)}}
+                "ffn": ffn}
     p: Params = {"embed": (cfg.padded_vocab, D),
                  "stages": tuple(tuple(block(kind, reps) for kind in unit)
                                  for unit, reps in cfg.stages()),
@@ -67,9 +79,10 @@ def param_shapes(cfg: ArchConfig) -> Params:
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype=torch.float32) -> Params:
-    """Random init on the generator's device: fan-in normal for matrices,
-    zeros for RMSNorm scales (the scale enters as ``1 + scale``), and the
-    SSD block's own rules (``ssm.init_ssd``)."""
+    """Random init on the generator's device: fan-in normal for matrices
+    (the MoE router in f32 whatever ``dtype``), zeros for RMSNorm scales
+    (the scale enters as ``1 + scale``), and the SSD block's own rules
+    (``ssm.init_ssd``)."""
     paths, values = [], []
     for path, shape in leaves_with_path(param_shapes(cfg),
                                         is_leaf=_is_shape):
@@ -79,6 +92,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         elif path[-1] == "scale":
             values.append(torch.zeros(shape, dtype=dtype,
                                       device=generator.device))
+        elif path[-1] == "router":
+            values.append(dense_init(shape, torch.float32, generator))
         else:
             values.append(dense_init(shape, dtype, generator))
     return from_paths(paths, values)
@@ -92,9 +107,22 @@ def _ffn_apply(p: Params, x, cfg: ArchConfig, m: WidthMasks):
     return matmul(h, p["w_down"])
 
 
+def _mix_ffn(p: Params, x, cfg: ArchConfig, m: WidthMasks):
+    """The block's FFN: (out, aux losses).  A MoE FFN masks its experts but
+    never its ``d_ff_expert`` (the reference passes no ``d_ff`` mask)."""
+    if cfg.moe:
+        return moe_mod.moe_ffn(p, x, cfg.moe, cfg.act, expert_mask=m.experts)
+    return _ffn_apply(p, x, cfg, m), {}
+
+
 def _attn_apply(p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
-                positions, window=None, cache=None, decode=False):
-    """Self attention. x: (B, S, D). Returns (out, new_cache|None)."""
+                positions, window=None, cache=None, decode=False,
+                chunk_offset: Optional[int] = None):
+    """Self attention. x: (B, S, D). Returns (out, new_cache|None).  With a
+    cache and ``chunk_offset`` (chunked prefill) the chunk's queries, at
+    positions chunk_offset.., attend against the whole cache once the chunk
+    is written into it (slots not yet written lie past every query and are
+    masked out)."""
     B, S, _ = x.shape
     hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     if H % K:   # the reference fails here too (its einsum's head sizes)
@@ -113,6 +141,10 @@ def _attn_apply(p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
         new_cache = attn_mod.cache_extend(cache, k, v)
     if decode:
         out = attn_mod.attend_decode(q, new_cache, head_mask=m.heads)
+    elif new_cache is not None and chunk_offset is not None:
+        out = attn_mod.attend(q, new_cache.k, new_cache.v, causal=True,
+                              window=window, head_mask=m.heads,
+                              q_offset=chunk_offset)
     else:
         out = attn_mod.attend(q, k, v, causal=True, window=window,
                               head_mask=m.heads)
@@ -120,8 +152,9 @@ def _attn_apply(p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
 
 
 def _block_apply(kind: str, p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
-                 gate, positions, window, cache=None, decode=False):
-    """One residual block. Returns (x, new_cache)."""
+                 gate, positions, window, cache=None, decode=False,
+                 chunk_offset: Optional[int] = None):
+    """One residual block. Returns (x, new_cache, aux losses)."""
     dm = m.d_model
     if kind == "ssd":
         h = apply_norm(cfg.norm, x, p["ln"], dm, cfg.norm_eps)
@@ -131,39 +164,57 @@ def _block_apply(kind: str, p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
                                           d_model_mask=dm,
                                           norm_eps=cfg.norm_eps)
         else:
+            # a chunk of a chunked prefill takes only the conv window from
+            # the cache and starts from a zero state, as the reference does
+            # (ROADMAP queue 3 item 21)
             f, c_new = ssm_mod.ssd_forward(
                 p["ssd"], h, cfg.ssm, cfg.d_model, head_mask=m.ssm_heads,
                 d_model_mask=dm, norm_eps=cfg.norm_eps,
                 cache=None if cache is None else cache["ssm"])
         x = x + (gate * f.to(torch.float32)).to(x.dtype)
-        return x, None if cache is None else dict(cache, ssm=c_new)
+        return x, None if cache is None else dict(cache, ssm=c_new), {}
     h = apply_norm(cfg.norm, x, p["ln1"], dm, cfg.norm_eps)
     a, c_new = _attn_apply(p["attn"], h, cfg, m, positions=positions,
                            window=window,
                            cache=None if cache is None else cache["self"],
-                           decode=decode)
+                           decode=decode, chunk_offset=chunk_offset)
     x = x + (gate * a.to(torch.float32)).to(x.dtype)
     h = apply_norm(cfg.norm, x, p["ln2"], dm, cfg.norm_eps)
-    f = _ffn_apply(p["ffn"], h, cfg, m)
+    f, aux = _mix_ffn(p["ffn"], h, cfg, m)
     x = x + (gate * f.to(torch.float32)).to(x.dtype)
-    return x, None if cache is None else dict(cache, self=c_new)
+    return x, None if cache is None else dict(cache, self=c_new), aux
+
+
+AUX_LOSSES = ("lb_loss", "z_loss")
 
 
 def stage_apply(stage_params: Tuple, unit: Tuple[str, ...], x,
                 cfg: ArchConfig, m: WidthMasks, *, gates, positions, window,
-                caches=None, decode=False):
+                caches=None, decode=False, chunk_offset: Optional[int] = None):
     """Loop over the repeat axis of one stage (the JAX ``lax.scan``).
     ``caches`` (one stacked cache per unit position) are updated in place:
     repeat r's new cache is cast to the stored dtype and written into slot
-    r, as the reference writes its scan carry.  Returns (x, caches)."""
+    r, as the reference writes its scan carry.  Returns (x, caches, aux):
+    each aux loss summed over the unit's blocks of a repeat, then over the
+    repeats, as the reference's scan sums them (0 without a MoE block)."""
+    per_repeat = {name: [] for name in AUX_LOSSES}
     for r in range(gates.shape[0]):
+        sums = {}
         for j, kind in enumerate(unit):
             p_r = tree_map(lambda t: t[r], stage_params[j])
             cache_r = (None if caches is None
                        else tree_map(lambda t: t[r], caches[j]))
-            x, new = _block_apply(kind, p_r, x, cfg, m, gate=gates[r],
-                                  positions=positions, window=window,
-                                  cache=cache_r, decode=decode)
+            x, new, aux = _block_apply(kind, p_r, x, cfg, m, gate=gates[r],
+                                       positions=positions, window=window,
+                                       cache=cache_r, decode=decode,
+                                       chunk_offset=chunk_offset)
             if caches is not None:
                 tree_map(lambda c, n: c[r].copy_(n), caches[j], new)
-    return x, caches
+            for name, val in aux.items():
+                sums[name] = val if name not in sums else sums[name] + val
+        for name, val in sums.items():
+            per_repeat[name].append(val)
+    aux = {name: torch.sum(torch.stack(vals)) if vals
+           else torch.zeros((), dtype=torch.float32, device=x.device)
+           for name, vals in per_repeat.items()}
+    return x, caches, aux

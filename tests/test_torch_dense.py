@@ -250,7 +250,7 @@ def test_gradients_match_reference():
     jp = jmodel.init_params(jcfg, jax.random.PRNGKey(3))
     p = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
     tok = synthetic.lm_stream(cfg.vocab_size, B, S, seed=2)
-    loss, g = model.loss_and_grad(
+    (loss, _), g = model.loss_and_grad(
         p, cfg, {"tokens": torch.from_numpy(tok).long()}, task="lm")
     (jloss, _), jg = jax.jit(jax.value_and_grad(
         lambda q, b: jmodel.loss_fn(q, jcfg, b, task="lm"), has_aux=True))(
@@ -304,9 +304,18 @@ def test_prefill_step_matches_reference():
     np.testing.assert_allclose(kv.k.float().numpy(),
                                np.asarray(jkv.k, np.float32), rtol=1e-2,
                                atol=1e-2)
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        steps.make_prefill_step(cfg.replace(prefill_chunk=4))(
+    # with prefill_chunk the step runs the prompt in 3 chunks of 4, as the
+    # reference's step does; each chunk attends against the step's bf16
+    # cache, so within one bf16 step of the largest logit (ROADMAP queue 3
+    # item 8)
+    with torch.no_grad():
+        logits, _ = steps.make_prefill_step(cfg.replace(prefill_chunk=4))(
             p, {"tokens": torch.from_numpy(tok).long()})
+    jlogits, _ = jsteps.make_prefill_step(jcfg.replace(prefill_chunk=4))(
+        jp, {"tokens": jnp.asarray(tok)})
+    want = np.asarray(jlogits)
+    np.testing.assert_allclose(logits.numpy(), want, rtol=0,
+                               atol=2.0 ** -8 * float(np.abs(want).max()))
 
 
 def test_paper_transformer_cut_raises_in_both_packages():

@@ -66,7 +66,7 @@ def test_loss_and_grads_match_reference(arch, dtype, task):
     leaves = [x.clone().requires_grad_(True)
               for _, x in leaves_with_path(params)]
     paths = [p for p, _ in leaves_with_path(params)]
-    loss = model.loss_fn(from_paths(paths, leaves), CFG,
+    loss, _ = model.loss_fn(from_paths(paths, leaves), CFG,
                          {k: torch.as_tensor(v, dtype=torch.int64)
                           for k, v in b.items()},
                          masks=a.masks(CFG), gates=a.gates(CFG), task=task)

@@ -33,6 +33,7 @@ from repro_torch.models import model
 from repro_torch.models.attention import KVCache
 from repro_torch.models.model import _to_torch, params_from_numpy
 from repro_torch.models.ssm import SSMCache
+from repro_torch.tree import leaves
 
 torch.set_num_threads(2)
 
@@ -117,7 +118,7 @@ def test_forward_matches_reference(arch):
     jl, _ = jmodel.forward(jp, jcfg, {"tokens": jnp.asarray(toks)},
                            remat=False)
     with torch.no_grad():
-        got = model.forward(params, cfg, {"tokens": _tt(toks)})
+        got, _ = model.forward(params, cfg, {"tokens": _tt(toks)})
     np.testing.assert_allclose(got.numpy(), np.asarray(jl), **TOL)
 
 
@@ -204,6 +205,20 @@ def test_serve_cli_runs_on_cpu():
         eng.generate(out["prompts"][:, :8], max_new=10)
 
 
+def test_serve_cuts_depth():
+    cfg, params = serve.build("phi3.5-moe-42b-a6.6b", n_layers=2,
+                              device="cpu")
+    want = get_arch("phi3.5-moe-42b-a6.6b").reduced().replace(n_layers=2)
+    assert cfg == want
+    ref = model.init_params(want, torch.Generator().manual_seed(0))
+    for a, b in zip(leaves(params), leaves(ref)):
+        assert torch.equal(a, b)
+    out = serve.main(["--arch", "phi3.5-moe-42b-a6.6b", "--n-layers", "2",
+                      "--batch", "2", "--prompt-len", "16", "--max-new", "3",
+                      "--device", "cpu"])
+    assert out["n_layers"] == 2 and out["tokens"].shape == (2, 3)
+
+
 def test_engine_samples_from_its_seed():
     cfg = get_arch("smollm-135m").reduced()
     params = model.init_params(cfg, torch.Generator().manual_seed(0))
@@ -223,7 +238,8 @@ def test_unported_serving_options_raise():
     cfg = get_arch("smollm-135m").reduced()
     params = model.init_params(cfg, torch.Generator().manual_seed(0))
     toks = {"tokens": _tt(_tokens(cfg, S=8))}
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        model.prefill(params, cfg, toks, chunk_size=4)
     with pytest.raises(NotImplementedError, match="windows"):
         model.prefill(params, cfg, toks, window=4)
+    # a window takes the prompt in one shot even when a chunk is asked for
+    with pytest.raises(NotImplementedError, match="windows"):
+        model.prefill(params, cfg, toks, window=4, chunk_size=4)

@@ -44,9 +44,10 @@ def _np(x):
     return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
 
 
-# the dense registry entries copied besides smollm-135m
+# the dense and moe registry entries copied besides smollm-135m
 _DENSE_COPIES = ("minicpm-2b", "tinyllama-1.1b", "codeqwen1.5-7b",
-                 "fedfa-paper-transformer")
+                 "fedfa-paper-transformer", "phi3.5-moe-42b-a6.6b",
+                 "arctic-480b")
 
 
 def _cfg_fields_equal(port: ArchConfig, ref) -> None:
@@ -56,6 +57,10 @@ def _cfg_fields_equal(port: ArchConfig, ref) -> None:
             assert dataclasses.asdict(a) == dataclasses.asdict(b)
             assert a.d_inner(port.d_model) == b.d_inner(ref.d_model)
             assert a.n_heads(port.d_model) == b.n_heads(ref.d_model)
+        elif f.name == "moe" and a is not None:   # the port's own MoEConfig
+            assert [x.name for x in dataclasses.fields(a)] == \
+                [x.name for x in dataclasses.fields(b)]
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
         else:
             assert a == b, f.name
     assert port.padded_vocab == ref.padded_vocab
@@ -181,7 +186,7 @@ def test_client_runtimes_match_reference(mode):
         assert masks.width_spec(CFG, a.width_mult).__dict__ == {
             k: v for k, v in jmasks.width_spec(JCFG, a.width_mult).__dict__
             .items() if k in ("d_model", "n_heads", "n_kv_heads", "d_ff",
-                              "ssm_heads")}
+                              "n_experts", "ssm_heads")}
     st = masks.stack_masks([a.masks(CFG) for a in archs])
     jst = jmasks.stack_masks([a.masks(JCFG) for a in jarchs])
     np.testing.assert_array_equal(_np(st.d_ff), _np(jst.d_ff))
