@@ -15,8 +15,8 @@
    test's tolerance (losses rtol 1e-4; the global within rtol 1e-4 /
    atol 1e-5 but at most 1e-4·N elements, each within one admission step
    of its segment, and relative L2 within 1e-4).  The same for
-   mamba2-130m and for phi3.5-moe at the JAX CLI's 4-layer cut (f32
-   free-running, int8 each round from the CPU's state).  A chunked
+   mamba2-130m, for phi3.5-moe and for recurrentgemma-2b at the JAX CLI's
+   4-layer cut (f32 free-running, int8 each round from the CPU's state).  A chunked
    prefill of phi3.5-moe's cut (``prefill_chunk`` 8, 2 prompts of 32) on
    the card and the CPU: the same experts picked by every MoE call (so
    the same tokens dropped), logits within one bf16 step of the largest
@@ -24,7 +24,8 @@
    (``launch.steps.make_train_step``) of every dense and moe registry
    entry on the card and the CPU (minicpm-2b with AdamW, WSD and
    grad_accum 2; smollm-135m also with grad_accum 2 and bf16 momentum;
-   arctic-480b with its dense residual branch): losses rtol
+   arctic-480b with its dense residual branch; recurrentgemma-2b's RG-LRU
+   blocks and softcapped logits): losses rtol
    1e-3, SGD's weights rtol 1e-3 / atol 1e-4; AdamW's first step moves
    each weight by the rate times the sign of its gradient, so a weight
    whose gradient is at the f32 noise may move the other way on each
@@ -54,7 +55,9 @@
    its aggregation timed.  Then FL training of phi3.5-moe at the CLI's
    4-layer cut the same way at f32 and int8: its expert rows are 2^18
    long, so ``quantile_fused`` takes every leaf and ``hist_level`` runs
-   0 times; its kernels held on the rows it passed them in step 9.  Then
+   0 times; its kernels held on the rows it passed them in step 9.  The
+   same for recurrentgemma-2b at the CLI's 4-layer cut (its rows at most
+   131,072 long), with one round and its aggregation timed.  Then
    ``run_dense`` of smollm-135m at full size
    (batch 8 x 64): finite losses, no kernel, ms a step, peak memory.
    Then the async driver: the card-vs-CPU check at the 4-layer size (the
@@ -89,7 +92,11 @@
    tokens (2100² > 2048², so prefill takes blocked attention) and 8 new
    tokens, the card through the ``flash_attention`` kernel (exactly once
    per layer) and the CPU through ``attend_blocked``, at the same
-   tolerances.
+   tolerances.  Then sliding windows through ring KV caches, at the same
+   tolerances: recurrentgemma-2b ``reduced()`` (window 128, capacity 232)
+   with 2 prompts of 200 and 24 new tokens, and tinyllama-1.1b
+   ``reduced()`` at ``Engine(window=64)``, capacity 128, 2 prompts of 100
+   and 24 new tokens: each ring wraps in prefill and again in decode.
 8. Drives the serving path at full size: ``launch.serve`` with
    ``--arch mamba2-130m --full-size --batch 8 --prompt-len 1024
    --max-new 32`` (counts reset just before; fails unless
@@ -107,7 +114,14 @@
    ..., 7,168, the first two launches at each offset held against
    ``attention_ref`` on the card, prefill ms and peak memory — then the
    serving Engine on 2 prompts of 4,096 with 16 new tokens (4 launches at
-   offset 0; decode routes at capacity 1).
+   offset 0; decode routes at capacity 1).  Then recurrentgemma-2b at its
+   published size (3,549,934,080 parameters, seeded random f32 weights
+   drawn on the card): the serving Engine on 2 prompts of 4,096 tokens and
+   32 new — ``flash_attention`` exactly 8 times (once per attention
+   layer) at hd 256 and window 2,048 and nothing else, the first two
+   launches held against ``attention_ref`` on the card, every token in the
+   vocabulary; prefill ms, decode ms a step, tokens/s and peak memory of a
+   first and a warm request.
 9. Holds each kernel against its plain PyTorch version at the main path's
    shapes (weighted sums within 1e-5 of the summed magnitudes; thresholds
    bit-equal; trimmed sums of squares at rtol 1e-5; the SSD's y and state
@@ -128,8 +142,10 @@
    ``flash_attention`` also against the 3xTF32 emulation of its f32 route
    (within 1e-5), at the JAX package's sweep of shapes and masks, on a
    ragged shape, with q offsets 1, 37 and 128, at the chunked prefill's
-   shape on the inputs that path passed it, and refusing inputs that need
-   a gradient or a negative offset; the
+   shape on the inputs that path passed it, at hd 256 on the sweep's masks
+   and q offsets 1 and 128 and on the inputs recurrentgemma-2b's request
+   passed it (f32 and bf16; SDPA timed with the window as a boolean mask),
+   and refusing inputs that need a gradient or a negative offset; the
    aggregation kernels also on the arguments mamba2-130m's path passed
    them (``ssd_intra_chunk`` on the evaluation's inputs of each shape,
    half of every chunk padding, at the serving tolerance), and on each
@@ -146,6 +162,7 @@ the repository around it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import subprocess
 import sys
@@ -677,17 +694,18 @@ def check_fl_launches(hist: dict, arch: str, update_dtype: str,
 
 
 # dense train-step cases on the card against the CPU: (arch, overrides) —
-# every dense and moe registry entry at its reduced() cut (the paper
-# transformer at its published size: its cut cannot run), minicpm-2b
+# every dense, moe and hybrid registry entry at its reduced() cut (the
+# paper transformer at its published size: its cut cannot run), minicpm-2b
 # through AdamW's generic accumulation and smollm-135m through SGD's fused
 # momentum; arctic-480b with its dense residual branch
 PHI = "phi3.5-moe-42b-a6.6b"
+RG = "recurrentgemma-2b"
 DENSE_CASES = [("smollm-135m", {}), ("tinyllama-1.1b", {}),
                ("codeqwen1.5-7b", {}), ("fedfa-paper-transformer", {}),
                ("minicpm-2b", {"grad_accum": 2}),
                ("smollm-135m", {"grad_accum": 2,
                                 "momentum_dtype": "bfloat16"}),
-               (PHI, {}), ("arctic-480b", {})]
+               (PHI, {}), ("arctic-480b", {}), (RG, {})]
 
 
 def flat_np(tree) -> np.ndarray:
@@ -1119,6 +1137,151 @@ def moe_serve_path(kernels, cfg, params, batch: int = 2,
             **out}
 
 
+def hybrid_full_size(kernels, card: str, batch: int = 2,
+                     prompt_len: int = 4096, max_new: int = 32) -> tuple:
+    """recurrentgemma-2b at its published size (26 layers, d_model 2,560,
+    10 query heads and 1 kv head of 256, window 2,048, vocabulary 256,000;
+    3,549,934,080 parameters), seeded random f32 weights drawn on the card,
+    served by ``launch.serve``'s Engine: 2 prompts of 4,096 tokens and 32
+    greedy tokens, counts reset just before each request: fails unless
+    ``flash_attention`` ran exactly once per attention layer (8 times), at
+    hd 256 and window 2,048, no other kernel ran, and every token is in the
+    vocabulary.  Timed twice (the second warm), then a prefill alone with
+    the first two launches held against ``attention_ref`` on the card (f32
+    within 2e-5), whose first launch's inputs feed ``flash_wide_rows``.
+    Floors: a decode step reads the 14.2 GB of f32 weights once, 4.2 ms at
+    3.35 TB/s; the prefill's f32 GEMMs are 36.7 TFLOP, 0.55 s at 67
+    TFLOP/s."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import leaves
+    cfg = get_arch(RG)
+    n_attn = sum(unit.count("attn") * reps for unit, reps in cfg.stages())
+    collect_garbage()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    check(n == 3_549_934_080, f"{RG} has {n} parameters")
+    out = {"arch": RG, "n_params": n, "weights_gb": n * 4 / 1e9,
+           "init_s": time.perf_counter() - t0, "batch": batch,
+           "prompt_len": prompt_len, "max_new": max_new, "card": card}
+    eng = serve.Engine(cfg, params, capacity=prompt_len + max_new + 8)
+    prompts = synthetic.lm_stream(cfg.vocab_size, batch, prompt_len, seed=1)
+    orig = ops.attention
+    for run in ("first", "warm"):
+        calls = []
+
+        def rec(q, k, v, **kw):
+            calls.append((q.shape[-1], kw.get("window"), kw.get("q_offset")))
+            return orig(q, k, v, **kw)
+        for k in kernels:
+            k.reset()
+        collect_garbage()
+        torch.cuda.reset_peak_memory_stats()
+        ops.attention = rec
+        try:
+            tok = eng.generate(prompts, max_new=max_new)
+        finally:
+            ops.attention = orig
+        launches = {k.symbol: k.launches for k in kernels}
+        check(launches == {k.symbol: n_attn if k.symbol == "flash_attention"
+                           else 0 for k in kernels}
+              and calls == [(256, 2048, 0)] * n_attn,
+              f"{RG} serving launches {launches}, calls {calls}")
+        check(tok.shape == (batch, max_new)
+              and bool(((tok >= 0) & (tok < cfg.vocab_size)).all()),
+              f"{RG} serving tokens {tok.shape} out of [0, {cfg.vocab_size})")
+        t = eng.timing
+        out[run] = {"prefill_ms": t["prefill_s"] * 1e3,
+                    "decode_ms_per_step": t["decode_s"] * 1e3
+                    / t["decode_steps"],
+                    "tokens_per_s": batch * max_new
+                    / (t["prefill_s"] + t["decode_s"]),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "launches": launches}
+    checked, offsets = {}, []
+    orig = _offset_recorder(ops, offsets, checked)
+    try:
+        eng.generate(prompts, max_new=1)
+    finally:
+        ops.attention = orig
+    out["checked_launches"] = min(2, len(offsets))
+    out["max_abs_err"] = checked["err"]
+    log(f"{RG} serving 2 x {prompt_len}: prefill "
+        f"{out['warm']['prefill_ms']:.1f} ms, decode "
+        f"{out['warm']['decode_ms_per_step']:.2f} ms a step, "
+        f"{out['warm']['tokens_per_s']:.1f} tokens/s warm, peak "
+        f"{out['warm']['peak_gib']:.2f} GiB")
+    return out, checked["inputs"][0], out["first"]["launches"][
+        "flash_attention"]
+
+
+def flash_wide_rows(inputs, launches: int) -> list:
+    """``flash_attention`` at hd 256 on the inputs the full-size
+    recurrentgemma-2b request passed its first launch (q (2, 4096, 10,
+    256), k and v (2, 4096, 1, 256), causal, window 2,048): f32 as the path
+    ran it and the same values in bf16, against ``attention_ref`` (2e-5,
+    5e-2), f32 also within 1e-5 of its 3xTF32 emulation on the first
+    sequence; the kernel, the plain version and SDPA (the window as a
+    boolean mask, ``enable_gqa``) timed.  The bound counts the kept (q, k)
+    pairs, three TF32 products each for f32 and one bf16 product for
+    bf16."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dt) for t in inputs)
+        B, Sq, H, hd = q.shape
+        Sk, K = k.shape[1], k.shape[2]
+        kw = dict(causal=True, window=2048)
+        got = ops.attention(q, k, v, **kw).float()
+        want = ref.attention_ref(q, k, v, **kw).float()
+        tol = 2e-5 if dt == torch.float32 else 5e-2
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        err, split_err = float((got - want).abs().max()), None
+        del want
+        if dt == torch.float32:
+            emul = ref.attention_split_tf32_ref(q[:1], k[:1], v[:1], **kw)
+            torch.testing.assert_close(got[:1], emul, rtol=1e-5, atol=1e-5)
+            split_err = float((got[:1] - emul).abs().max())
+            del emul
+        del got
+        keep = attention_keep(Sq, Sk, True, 2048)
+        products = 4 * B * H * hd * int(keep.sum())
+        b, by = bound(2 * B * (Sq * H + Sk * K) * hd * q.element_size(),
+                      *((3 * products, TF32_OPS_PER_S)
+                        if dt == torch.float32
+                        else (products, BF16_OPS_PER_S)))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = torch.as_tensor(keep, device="cuda")
+        out.append({
+            "name": "flash_attention",
+            "dtype": "f32" if dt == torch.float32 else "bf16",
+            "path": f"{RG} serving (published size, 2 x 4,096)",
+            "shape": [B, Sq, Sk, H, K, hd], "causal": True, "window": 2048,
+            "q_offset": 0, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+            "launches": launches if dt == torch.float32 else 0,
+            "max_abs_err": err, "max_abs_err_vs_3xtf32": split_err,
+            "ms": time_ms(lambda: ops.attention(q, k, v, **kw), 10),
+            "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v, **kw), 2,
+                                warmup=1),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True), 3,
+                warmup=1)})
+        log(f"flash_attention hd 256 {out[-1]['dtype']}: "
+            f"{out[-1]['ms']:.3f} ms (bound {b:.3f}, plain "
+            f"{out[-1]['plain_ms']:.2f}, SDPA {out[-1]['library_ms']:.3f})")
+        del q, k, v, qt, kt, vt, mask
+    return out
+
+
 def dense_path(kernels, steps: int = 10) -> dict:
     """``run_dense("smollm-135m", full_size=True)`` at batch 8 x sequence
     64 for 1 + ``steps`` steps (counts reset just before): finite losses,
@@ -1171,14 +1334,16 @@ def dense_state_estimate(arch: str) -> dict:
     return {"params": n, "trees_gb": 7 * 4 * n / 1e9}
 
 
-def round_timing(update_dtype: str, arch: str = "smollm-135m"):
-    """Local training, admission and aggregation of one full-size resident
-    round of ``arch`` (CUDA events), and the round's peak memory."""
+def round_timing(update_dtype: str, arch: str = "smollm-135m",
+                 full_size: bool = True):
+    """Local training, admission and aggregation of one resident round of
+    ``arch`` (full size, or the CLI's 4-layer cut; CUDA events), and the
+    round's peak memory."""
     from repro_torch.launch import profile
     collect_garbage()
     r = profile.full_round(8, device="cuda", update_dtype=update_dtype,
-                           arch=arch)
-    out = {"arch": arch, "update_dtype": update_dtype,
+                           arch=arch, full_size=full_size)
+    out = {"arch": arch, "update_dtype": update_dtype, "full_size": full_size,
            "n_params": r["index"].n, "m": 8, **profile.breakdown(r)}
     return out, r["g_buf"]
 
@@ -1761,13 +1926,18 @@ def fl_path_kernel_rows(hist: dict, arch: str, dtype: str, kernels,
     return out + list(ssd_rows.values())
 
 
-def serve_card_vs_cpu(flash) -> None:
+def serve_card_vs_cpu(flash, hybrid: bool = False) -> None:
     """The serving Engine on the card and on the CPU at the reduced sizes,
-    same weights and prompts, greedy, 8 new tokens, with an f32 and a bf16
-    cache: 4 prompts of 48 tokens for mamba2-130m and the 4-layer
+    same weights and prompts, greedy, with an f32 and a bf16 cache: 4
+    prompts of 48 tokens and 8 new for mamba2-130m and the 4-layer
     smollm-135m, then 2 prompts of 2,100 for smollm-135m, whose prefill
     takes blocked attention — ``flash`` (the ``flash_attention`` kernel)
-    once per layer on the card, ``attend_blocked`` on the CPU."""
+    once per layer on the card, ``attend_blocked`` on the CPU.  With
+    ``hybrid`` instead the sliding windows, through ring KV caches that
+    wrap in prefill and again in decode: recurrentgemma-2b ``reduced()``
+    (window 128, capacity 232: a ring of 128) with 2 prompts of 200 and 24
+    new tokens, and tinyllama-1.1b ``reduced()`` at ``Engine(window=64)``,
+    capacity 128 (a ring of 64), 2 prompts of 100 and 24 new tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.data import synthetic
     from repro_torch.launch import serve, train
@@ -1775,10 +1945,18 @@ def serve_card_vs_cpu(flash) -> None:
     from repro_torch.tree import tree_map
 
     smollm = train.fl_config("smollm-135m", "cls", 10, full_size=False)
-    cases = [("mamba2-130m", get_arch("mamba2-130m").reduced(), 4, 48, 0),
-             ("smollm-135m", smollm, 4, 48, 0),
-             ("smollm-135m", smollm, 2, 2100, smollm.n_layers)]
-    for name, cfg, batch, prompt_len, flash_launches in cases:
+    # (name, cfg, batch, prompt, new tokens, capacity, window, launches)
+    cases = [("mamba2-130m", get_arch("mamba2-130m").reduced(), 4, 48, 8,
+              64, None, 0),
+             ("smollm-135m", smollm, 4, 48, 8, 64, None, 0),
+             ("smollm-135m", smollm, 2, 2100, 8, 2116, None,
+              smollm.n_layers)]
+    if hybrid:
+        cases = [(RG, get_arch(RG).reduced(), 2, 200, 24, 232, None, 0),
+                 ("tinyllama-1.1b", get_arch("tinyllama-1.1b").reduced(), 2,
+                  100, 24, 128, 64, 0)]
+    for (name, cfg, batch, prompt_len, max_new, capacity, window,
+         flash_launches) in cases:
         params = init_params(cfg, torch.Generator().manual_seed(0))
         prompts = synthetic.lm_stream(cfg.vocab_size, batch, prompt_len,
                                       seed=0)
@@ -1786,10 +1964,10 @@ def serve_card_vs_cpu(flash) -> None:
             out = {}
             for dev in ("cuda", "cpu"):
                 eng = serve.Engine(cfg, tree_map(lambda t: t.to(dev), params),
-                                   capacity=prompt_len + 16,
+                                   capacity=capacity, window=window,
                                    cache_dtype=cache)
                 flash.reset()
-                out[dev] = eng.generate(prompts, max_new=8,
+                out[dev] = eng.generate(prompts, max_new=max_new,
                                         return_logits=True)
                 want_launches = flash_launches if dev == "cuda" else 0
                 check(flash.launches == want_launches,
@@ -1806,9 +1984,9 @@ def serve_card_vs_cpu(flash) -> None:
             tol = (dict(rtol=1e-3, atol=1e-4) if cache == torch.float32 else
                    dict(rtol=0, atol=BF16_STEP * real))
             np.testing.assert_allclose(lg, want, **tol)
-            log(f"serving card vs cpu, {name}, prompt {prompt_len}, {cache} "
-                f"cache: tokens equal, logits max abs diff "
-                f"{float(np.abs(lg - want).max()):.3g}")
+            log(f"serving card vs cpu, {name}, prompt {prompt_len}, window "
+                f"{window or cfg.attn_window}, {cache} cache: tokens equal, "
+                f"logits max abs diff {float(np.abs(lg - want).max()):.3g}")
 
 
 def serve_path(kernels, arch: str, batch: int, prompt_len: int,
@@ -1996,6 +2174,48 @@ FLASH_SWEEP = [(2, 256, 256, 4, 2, 64), (1, 128, 128, 8, 8, 128),
 # q offsets (chunked prefill): ragged Sq < Sk at offsets 1, 37 and 128 (a
 # multiple of every kv tile), causal with and without a window
 FLASH_OFFSET_SHAPE, FLASH_OFFSETS = (2, 100, 300, 4, 2, 64), (1, 37, 128)
+# hd 256 (recurrentgemma-2b's heads: 10 query heads over 1 kv head): the
+# sweep's masks, and q offsets 1 and 128 on a ragged Sq < Sk
+FLASH_WIDE, FLASH_WIDE_OFFSET = (1, 192, 192, 10, 1, 256), \
+    (2, 100, 300, 10, 1, 256)
+
+
+# the narrow route's bit check: every hd <= 128 case of the sweep, the
+# offsets and the serving shape, on inputs drawn with numpy, f32 and bf16
+FLASH_BIT_CASES = [
+    (shape, dt, causal, window, off)
+    for shape, masks in [(s, ((True, None, 0), (True, 96, 0),
+                              (False, None, 0))) for s in FLASH_SWEEP
+                         if s[1] == s[2]]
+    + [((1, 64, 320, 2, 2, 32), ((False, None, 0),)),
+       (FLASH_OFFSET_SHAPE, tuple((True, w, o) for o in FLASH_OFFSETS
+                                  for w in (None, 96))),
+       ((2, 1024, 4096, 8, 2, 128), ((True, None, 3072),)),
+       ((8, 4096, 4096, 9, 3, 64), ((True, None, 0),))]
+    for causal, window, off in masks for dt in ("f32", "bf16")]
+# sha256 of the outputs of FLASH_BIT_CASES in order, from the narrow
+# kernel as it was before the hd-256 route was added (that commit's
+# csrc/flash_attention.cu, built and run through flash_narrow_digest on an
+# NVIDIA H100 80GB HBM3; PERF.md)
+FLASH_NARROW_SHA256 = \
+    "f944ca5665e497cc8335c4d4a77656a8f7c409ed659f65415dc4ddf57507f217"
+
+
+def flash_narrow_digest(attention) -> str:
+    """sha256 of ``attention(q, k, v, causal, window, q_offset)``'s output
+    bits on every ``FLASH_BIT_CASES`` case, its inputs drawn with numpy
+    (seed 0 for each case, so the digest depends on the kernel alone)."""
+    h = hashlib.sha256()
+    for (B, Sq, Sk, H, K, hd), dt, causal, window, off in FLASH_BIT_CASES:
+        rng = np.random.default_rng(0)
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (B, S, n, hd), dtype=np.float32)).to("cuda").to(
+            torch.float32 if dt == "f32" else torch.bfloat16)
+            for S, n in ((Sq, H), (Sk, K), (Sk, K)))
+        out = attention(q, k, v, causal, window, off)
+        torch.cuda.synchronize()
+        h.update(out.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def attention_keep(Sq: int, Sk: int, causal: bool, window,
@@ -2027,10 +2247,22 @@ def flash_checks(launches: int) -> list:
     the bf16 rate for bf16 ones.  Also with q offsets (``FLASH_OFFSETS``,
     causal, with and without window 96, f32 and bf16, at the same
     tolerances; no path launches their shape, so their rows carry 0
-    launches, the others ``launches``, the long-prompt request's).  Then
-    the wrapper's refusal of inputs that need a gradient and of a negative
-    offset."""
+    launches, the others ``launches``, the long-prompt request's).  At hd
+    256 (the wide route, two warpgroups a q head) the sweep's masks and q
+    offsets 1 and 128, f32 and bf16 (rows with 0 launches: the path's shape
+    has its own rows, ``flash_wide_rows``).  Then the wrapper's refusal of
+    inputs that need a gradient and of a negative offset.  First, the
+    narrow route (hd <= 128) gives the bits of the commit before the wide
+    route was added (``FLASH_NARROW_SHA256``)."""
     from repro_torch.kernels.flash_attention import ops, ref
+    digest = flash_narrow_digest(lambda q, k, v, causal, window, off:
+                                 ops.attention(q, k, v, causal=causal,
+                                               window=window, q_offset=off))
+    check(digest == FLASH_NARROW_SHA256,
+          f"flash_attention at hd <= 128 moved from the parent's bits: "
+          f"sha256 {digest}, expected {FLASH_NARROW_SHA256}")
+    log(f"flash_attention at hd <= 128: the parent's bits on "
+        f"{len(FLASH_BIT_CASES)} cases (sha256 {digest[:16]}...)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
     f32, bf16 = torch.float32, torch.bfloat16
@@ -2044,6 +2276,10 @@ def flash_checks(launches: int) -> list:
     cases += [(FLASH_OFFSET_SHAPE, dt, True, window, off)
               for off in FLASH_OFFSETS for dt in (f32, bf16)
               for window in (None, 96)]
+    cases += [(FLASH_WIDE, dt, causal, window, 0) for dt in (f32, bf16)
+              for causal, window in ((True, None), (True, 96), (False, None))]
+    cases += [(FLASH_WIDE_OFFSET, dt, True, window, off) for off in (1, 128)
+              for dt in (f32, bf16) for window in (None, 96)]
     out = []
     for (B, Sq, Sk, H, K, hd), dt, causal, window, off in cases:
         q, k, v = (randn(B, S, n, hd).to(dt)
@@ -2080,7 +2316,7 @@ def flash_checks(launches: int) -> list:
             "window": window, "q_offset": off, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
-            "launches": 0 if off else launches,
+            "launches": 0 if off or hd > 128 else launches,
             "max_abs_err": float((got - want).abs().max()),
             "max_abs_err_vs_3xtf32": split_err,
             "ms": time_ms(lambda: ops.attention(q, k, v, **kw),
@@ -2154,6 +2390,8 @@ def main() -> int:
     small_quantized_check("int8", "mamba2-130m")
     small_reference_check(PHI)
     small_quantized_check("int8", PHI)
+    small_reference_check(RG)
+    small_quantized_check("int8", RG)
     print(json.dumps({"small_moe_prefill": small_moe_prefill_check()}),
           flush=True)
     print(json.dumps({"small_dense": small_dense_check()}), flush=True)
@@ -2211,6 +2449,29 @@ def main() -> int:
         fl_rows += fl_path_kernel_rows(hist, PHI, dtype, kernels,
                                        path=f"{PHI} fl (4-layer cut)")
         del hist
+    # FL training of recurrentgemma-2b at the CLI's 4-layer cut (stage 1 a
+    # lone rglru block; every row at most 2^18: quantile_fused, no
+    # hist_level), its kernels on the rows it passed them, and one round
+    # and its aggregation timed
+    for dtype in ("f32", "int8"):
+        hist = main_path(kernels, dtype, [SCALED_ACCUM, QUANTILE_FUSED]
+                         + ([QUANT_ACCUM] if dtype == "int8" else []),
+                         arch=RG, record_all=True, full_size=False)
+        check_fl_launches(hist, RG, dtype, full_size=False)
+        print(json.dumps({"fl_path": {"arch": RG, "cut": "4 layers",
+                                      "update_dtype": dtype, **{
+            k: hist[k] for k in ("round_loss", "global_acc", "local_acc",
+                                 "launches", "seconds", "peak_gib")},
+            "launches_by_shape": {
+                sym: [[list(shape), n] for shape, n in c.items()]
+                for sym, c in hist["by_shape"].items() if c}},
+            "card": card}), flush=True)
+        fl_rows += fl_path_kernel_rows(hist, RG, dtype, kernels,
+                                       path=f"{RG} fl (4-layer cut)")
+        del hist
+        timing, g = round_timing(dtype, RG, full_size=False)
+        print(json.dumps({"round": timing, "card": card}), flush=True)
+        del g
     for dtype in ("f32", "int8"):
         timing, g = round_timing(dtype, "mamba2-130m")
         print(json.dumps({"round": timing, "card": card}), flush=True)
@@ -2235,6 +2496,7 @@ def main() -> int:
     print(json.dumps({"trimmed_norm_path": tn}), flush=True)
     del g
     serve_card_vs_cpu(FLASH_ATTENTION)
+    serve_card_vs_cpu(FLASH_ATTENTION, hybrid=True)
     for arch, shape, expect in (
             ("mamba2-130m", (8, 1024, 32),     # one SSD launch per layer
              {"ssd_intra_chunk": MAMBA2_130M.n_layers}),
@@ -2249,11 +2511,20 @@ def main() -> int:
     # flash_attention at q offsets, then serving
     phi, phi_row = phi_full_width(kernels, card)
     print(json.dumps({"phi_full_width": phi}), flush=True)
+    del phi
+    # recurrentgemma-2b at its published size: serving 2 x 4,096 through
+    # flash_attention at hd 256 and window 2,048, then the kernel's rows on
+    # the inputs that request passed it
+    rg, rg_inputs, rg_launches = hybrid_full_size(kernels, card)
+    print(json.dumps({"hybrid_full_size": rg}), flush=True)
+    rg_rows = flash_wide_rows(rg_inputs, rg_launches)
+    del rg_inputs
     print(json.dumps({"kernels": kernel_checks(launches, shapes,
                                                quantile_calls)
                       + hist_checks(launches, shapes) + fl_rows + ssd_checks(
         launches["mamba2-130m@1024"]["ssd_intra_chunk"]) + flash_checks(
-        launches["smollm-135m@4096"]["flash_attention"]) + [phi_row]}),
+        launches["smollm-135m@4096"]["flash_attention"]) + [phi_row]
+        + rg_rows}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Architecture configuration (own copy of ``repro.configs.base``: the
-dense, ssm and moe families).  The field values, derived properties and
+dense, ssm, moe and hybrid families).  The field values, derived properties and
 ``reduced()`` are held equal to the JAX package's by
 ``tests/test_torch_static.py``."""
 from __future__ import annotations
@@ -38,9 +38,20 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU block configuration."""
+    d_conv: int = 4
+    expand: float = 1.5          # d_rnn = expand * d_model (RG uses lru_width)
+    c: float = 8.0               # a = a_param ** (c * r_t)
+
+    def d_rnn(self, d_model: int) -> int:
+        return int(self.expand * d_model)
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # "dense", "ssm" and "moe" are ported
+    family: str                      # dense, ssm, moe and hybrid are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -62,6 +73,7 @@ class ArchConfig:
 
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
 
     # --- FedFA ---
     n_sections: int = 4              # contiguous groups of scan repeats

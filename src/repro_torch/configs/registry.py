@@ -1,8 +1,9 @@
-"""Registry of the ported architectures (own copy of the dense, ssm and
-moe entries of ``repro.configs.registry``, field for field)."""
+"""Registry of the ported architectures (own copy of the dense, ssm, moe
+and hybrid entries of ``repro.configs.registry``, field for field)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig
+from repro_torch.configs.base import (ArchConfig, MoEConfig, RGLRUConfig,
+                                     SSMConfig)
 
 MINICPM_2B = ArchConfig(
     name="minicpm-2b", family="dense", citation="arXiv:2404.06395",
@@ -25,6 +26,16 @@ ARCTIC_480B = ArchConfig(
     moe=MoEConfig(n_experts=128, top_k=2, d_ff_expert=4864, dense_residual=True),
     fsdp=True, serve_fsdp=True, grad_accum=128, optimizer="sgd",
     prefill_chunk=2048,
+)
+
+RECURRENTGEMMA_2B = ArchConfig(
+    name="recurrentgemma-2b", family="hybrid", citation="arXiv:2402.19427",
+    n_layers=26, d_model=2560, n_heads=10, n_kv_heads=1, d_ff=7680,
+    vocab_size=256_000, d_head=256, attn_window=2048,
+    layer_pattern=("rglru", "rglru", "attn"),
+    rglru=RGLRUConfig(expand=1.0),          # RG-2B lru_width == d_model (2560)
+    act="gelu", logit_softcap=30.0, fsdp=True, grad_accum=4,
+    long_context_mode="native",
 )
 
 MAMBA2_130M = ArchConfig(
@@ -68,8 +79,9 @@ FEDFA_PAPER_TRANSFORMER = ArchConfig(
 )
 
 ARCHS = {a.name: a for a in (MINICPM_2B, SMOLLM_135M, ARCTIC_480B,
-                             MAMBA2_130M, TINYLLAMA_1B, PHI35_MOE,
-                             CODEQWEN_7B, FEDFA_PAPER_TRANSFORMER)}
+                             RECURRENTGEMMA_2B, MAMBA2_130M, TINYLLAMA_1B,
+                             PHI35_MOE, CODEQWEN_7B,
+                             FEDFA_PAPER_TRANSFORMER)}
 
 
 def get_arch(name: str) -> ArchConfig:

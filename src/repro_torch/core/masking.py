@@ -93,9 +93,23 @@ def _moe_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, Any]:
     return p
 
 
+def _rglru_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, AX]:
+    """The RG-LRU block's leaves: ``d_rnn`` masks the recurrence's
+    channels (the gate matrices on both axes), ``d_model`` the input and
+    output projections' other axis."""
+    dr = m.d_rnn
+    return {"in_x": AX(m.d_model, dr), "in_gate": AX(m.d_model, dr),
+            "conv_w": AX(None, dr), "conv_b": AX(dr),
+            "w_r": AX(dr, dr), "b_r": AX(dr), "w_i": AX(dr, dr),
+            "b_i": AX(dr), "lam": AX(dr), "out": AX(dr, m.d_model)}
+
+
 def _block_ax(kind: str, cfg: ArchConfig, m: WidthMasks) -> Dict[str, Any]:
     if kind == "ssd":
         return {"ln": _norm_ax(cfg, m.d_model), "ssd": _ssd_ax(cfg, m)}
+    if kind == "rglru":
+        return {"ln1": _norm_ax(cfg, m.d_model), "rg": _rglru_ax(cfg, m),
+                "ln2": _norm_ax(cfg, m.d_model), "ffn": _ffn_ax(cfg, m)}
     return {"ln1": _norm_ax(cfg, m.d_model), "attn": _attn_ax(cfg, m),
             "ln2": _norm_ax(cfg, m.d_model),
             "ffn": _moe_ax(cfg, m) if cfg.moe else _ffn_ax(cfg, m)}

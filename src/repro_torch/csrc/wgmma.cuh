@@ -2,7 +2,8 @@
 // by the kernels that run their products on the tensor cores
 // (flash_attention.cu, ssd_intra_chunk.cu).
 //  * wgmma wrappers, D (64 x N, f32) += A (64 x K) B (N x K)^T, bf16
-//    (k16) and tf32 (k8), A from shared memory (ss) or registers (rs);
+//    (k16) and tf32 (k8), A from shared memory (ss; tf32 also at N = 16)
+//    or registers (rs);
 //  * no-swizzle shared-memory descriptors and the canonical core-matrix
 //    layout (8 rows of 16 bytes, 128 contiguous bytes a core matrix):
 //    K-major, the LBO is the distance between 16-byte column chunks and
@@ -72,6 +73,18 @@ __device__ __forceinline__ void wgmma_ss_bf16_n128(
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32_n16(
+    float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
@@ -304,7 +317,8 @@ __device__ __forceinline__ void cp_async_wait() {
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
                                        uint64_t b, int scale_d, float) {
-  if constexpr (N == 32) wgmma_ss_tf32_n32(d, a, b, scale_d);
+  if constexpr (N == 16) wgmma_ss_tf32_n16(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_ss_tf32_n32(d, a, b, scale_d);
   else if constexpr (N == 64) wgmma_ss_tf32_n64(d, a, b, scale_d);
   else wgmma_ss_tf32_n128(d, a, b, scale_d);
 }

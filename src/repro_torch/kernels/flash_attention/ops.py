@@ -25,8 +25,9 @@ FLASH_ATTENTION = CudaKernel(
     + [ctypes.c_float, ctypes.c_void_p])
 
 # the kernel's head widths: multiples of 8 (rows of whole 16-byte chunks,
-# copied by cp.async 16 bytes at a time) up to its shared-memory tiles' 128
-_MAX_HD = 128
+# copied 16 bytes at a time) up to 256 (above 128 two warpgroups share a
+# q head, each with 128 columns of its output)
+_MAX_HD = 256
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -40,9 +40,10 @@ BATCH, DECODE_STEPS = 8, 8  # a serving trace's prompts and decode steps
 
 
 def full_round(m: int = 8, seed: int = 1, device=None,
-               update_dtype: str = "f32", arch: str = "smollm-135m") -> dict:
-    """Everything one full-size resident round of ``arch`` needs, on
-    ``device``."""
+               update_dtype: str = "f32", arch: str = "smollm-135m",
+               full_size: bool = True) -> dict:
+    """Everything one resident round of ``arch`` needs, on ``device``: at
+    full size, or at the CLI's 4-layer cut unless ``full_size``."""
     from repro_torch.core import flat
     from repro_torch.core.round import fresh_quant_state
     from repro_torch.core.server import (FLConfig, default_class_masks,
@@ -53,7 +54,7 @@ def full_round(m: int = 8, seed: int = 1, device=None,
     from repro_torch.tree import tree_map
 
     dev = resolve_device(device)
-    cfg = train.fl_config(arch, "cls", 10, full_size=True)
+    cfg = train.fl_config(arch, "cls", 10, full_size=full_size)
     params = tree_map(lambda t: t.to(dev), init_params(
         cfg, torch.Generator().manual_seed(seed)))
     specs = make_client_specs(cfg, m, archs=train.client_arch_pool(cfg, "width"),

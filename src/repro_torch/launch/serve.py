@@ -1,5 +1,5 @@
 """Batched serving: prefill, then greedy or temperature decode over a KV
-(or SSM state) cache.
+cache (a ring under a sliding window) or a recurrent state.
 
     python -m repro_torch.launch.serve [--arch smollm-135m|mamba2-130m|...]
         [--batch 8] [--prompt-len 32] [--max-new 32] [--full-size]
@@ -27,7 +27,9 @@ from repro_torch.models import model as model_mod
 
 
 class Engine:
-    """Minimal batched inference engine around prefill / decode_step."""
+    """Minimal batched inference engine around prefill / decode_step.
+    ``window`` (else the config's ``attn_window``) slides the attention
+    window; its KV caches are then rings of min(capacity, window)."""
 
     def __init__(self, cfg, params, *, window: Optional[int] = None,
                  capacity: int = 512, cache_dtype=torch.bfloat16):
@@ -50,10 +52,16 @@ class Engine:
         tok = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                               device=dev)
         B, S = tok.shape
+        # the KV cache holds what the request writes, or under a window a
+        # ring that is at least as long as the window (shorter, it would
+        # overwrite positions still inside the window)
+        win = self.window if self.window is not None else self.cfg.attn_window
         if "attn" in self.cfg.layer_pattern and S + max_new - 1 > \
-                self.capacity:
+                self.capacity and not (win and self.capacity >= win):
             raise ValueError(f"prompt {S} + {max_new - 1} decoded tokens "
-                             f"exceed the KV cache's {self.capacity}")
+                             f"exceed the KV cache's {self.capacity}"
+                             + (f", a ring shorter than the window {win}"
+                                if win else ""))
         gen = (torch.Generator(device=dev).manual_seed(seed)
                if temperature > 0.0 else None)
         sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: 0)

@@ -9,8 +9,10 @@ it blocked attention: the hand-written CUDA flash-attention kernel
 plain PyTorch (the CPU, and training on the card, which the JAX package
 also trains through its XLA ``attend_blocked``).  ``q_offset`` places the
 queries at positions q_offset.. against keys from 0 (a chunk of a chunked
-prefill against the whole cache).  Ring caches and sliding windows on the
-serving path are not yet ported."""
+prefill against the whole cache).  A cache no longer than the sliding
+window is a ring: ``cache_extend(ring=True)`` writes position p at slot
+p % capacity, and ``attend_decode`` masks each slot by the position last
+written there (never unrotating the stored order)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -45,14 +47,23 @@ def init_kv_cache(batch: int, capacity: int, n_kv: int, head_dim: int,
 
 
 def cache_extend(cache: KVCache, k_new: torch.Tensor,
-                 v_new: torch.Tensor) -> KVCache:
-    """Write S new kv entries at positions pos..pos+S-1 (prefill S tokens or
-    decode S = 1), rounded to the cache's dtype.  The caller keeps
-    pos + S <= capacity."""
-    idx = cache.pos + torch.arange(k_new.shape[1], device=k_new.device)
+                 v_new: torch.Tensor, ring: bool = False) -> KVCache:
+    """Write S new kv entries for positions pos..pos+S-1 (prefill S tokens
+    or decode S = 1), rounded to the cache's dtype: at slots pos.. (the
+    caller keeps pos + S <= capacity), or on a ring at slot p % capacity,
+    where a prefill longer than the ring keeps its last capacity entries."""
+    S, cap = k_new.shape[1], cache.capacity
+    if ring and S >= cap:
+        k_new, v_new = k_new[:, S - cap:], v_new[:, S - cap:]
+        idx = (cache.pos + S - cap
+               + torch.arange(cap, device=k_new.device)) % cap
+    else:
+        idx = cache.pos + torch.arange(S, device=k_new.device)
+        if ring:
+            idx = idx % cap
     return KVCache(cache.k.index_copy(1, idx, k_new.to(cache.k.dtype)),
                    cache.v.index_copy(1, idx, v_new.to(cache.v.dtype)),
-                   cache.pos + k_new.shape[1])
+                   cache.pos + S)
 
 
 def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -206,18 +217,32 @@ def attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _apply_head_mask(out, head_mask)
 
 
-def attend_decode(q: torch.Tensor, cache: KVCache, *,
+def attend_decode(q: torch.Tensor, cache: KVCache, *, ring: bool = False,
+                  window: Optional[int] = None,
                   head_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token decode: q (B, 1, H, hd) against the cache (already
-    extended).  Logits and softmax in f32; the probabilities are rounded to
-    the cache's dtype before the value product, as the reference rounds
-    them."""
+    extended).  A slot is valid once written and, under a window, while the
+    position in it lies inside the window: on a ring the position last
+    written to slot s is ((pos-1-s) // cap)·cap + s.  Logits and softmax in
+    f32; the probabilities are rounded to the cache's dtype before the
+    value product, as the reference rounds them."""
     H, hd = q.shape[2], q.shape[3]
     k = _expand_kv(cache.k, H)
     v = _expand_kv(cache.v, H)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * hd ** -0.5
-    valid = torch.arange(cache.capacity, device=q.device) < cache.pos
+    cap, pos = cache.capacity, cache.pos
+    slot = torch.arange(cap, device=q.device)
+    if ring:
+        valid = slot < torch.clamp_max(pos, cap)
+        if window is not None and window < cap:
+            last = torch.div(pos - 1 - slot, cap, rounding_mode="floor") \
+                * cap + slot
+            valid &= last > pos - 1 - window
+    else:
+        valid = slot < pos
+        if window is not None:
+            valid &= slot > pos - 1 - window
     logits = torch.where(valid[None, None, None, :], logits,
                          torch.full((), NEG_INF, device=q.device))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)

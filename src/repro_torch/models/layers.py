@@ -1,5 +1,5 @@
-"""Primitive layers: width-aware RMSNorm, rotary embeddings, init, and the
-JAX type-promotion rule for mixed-dtype products.
+"""Primitive layers: width-aware RMSNorm, rotary embeddings, init, the
+logit softcap, and the JAX type-promotion rule for mixed-dtype products.
 
 A client whose width mask zeroes a suffix of channels must compute exactly
 what the corresponding small dense model computes, so norms divide by the
@@ -67,3 +67,11 @@ def dense_init(shape, dtype, generator: torch.Generator,
 
 ACTIVATIONS = {"silu": F.silu, "relu": F.relu,
                "gelu": lambda x: F.gelu(x, approximate="tanh")}
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """cap·tanh(x / cap), taken in f32 and cast back to x's dtype (no-op
+    without a cap)."""
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)

@@ -28,6 +28,7 @@ class WidthSpec:
     d_ff: int
     n_experts: int = 0
     ssm_heads: int = 0
+    d_rnn: int = 0
 
 
 def width_spec(cfg: ArchConfig, w: float) -> WidthSpec:
@@ -44,7 +45,11 @@ def width_spec(cfg: ArchConfig, w: float) -> WidthSpec:
     n_exp = (max(cfg.moe.top_k, int(round(w * cfg.moe.n_experts)))
              if cfg.moe else 0)
     sh = max(1, int(round(w * cfg.ssm.n_heads(cfg.d_model)))) if cfg.ssm else 0
-    return WidthSpec(d_model, heads, kv, d_ff, n_exp, sh)
+    dr = 0
+    if cfg.rglru:
+        dr = (max(8, int(w * cfg.rglru.d_rnn(cfg.d_model)) // 8 * 8) if w < 1.0
+              else cfg.rglru.d_rnn(cfg.d_model))
+    return WidthSpec(d_model, heads, kv, d_ff, n_exp, sh, dr)
 
 
 def _prefix(n_total: int, n_active: int) -> torch.Tensor:
@@ -60,6 +65,7 @@ class WidthMasks:
     d_ff: Optional[torch.Tensor]
     experts: Optional[torch.Tensor] = None
     ssm_heads: Optional[torch.Tensor] = None
+    d_rnn: Optional[torch.Tensor] = None
 
     def _map(self, fn) -> "WidthMasks":
         return WidthMasks(**{f.name: None if getattr(self, f.name) is None
@@ -91,7 +97,9 @@ def width_masks(cfg: ArchConfig, w: float) -> WidthMasks:
         d_ff=_prefix(cfg.d_ff, s.d_ff) if cfg.d_ff else None,
         experts=_prefix(cfg.moe.n_experts, s.n_experts) if cfg.moe else None,
         ssm_heads=(_prefix(cfg.ssm.n_heads(cfg.d_model), s.ssm_heads)
-                   if cfg.ssm else None))
+                   if cfg.ssm else None),
+        d_rnn=(_prefix(cfg.rglru.d_rnn(cfg.d_model), s.d_rnn)
+               if cfg.rglru else None))
 
 
 def full_masks(cfg: ArchConfig) -> WidthMasks:

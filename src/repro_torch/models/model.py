@@ -1,6 +1,7 @@
 """Top-level model API: train forward, losses, serving (prefill and
-decode over KV / SSM state caches) and the loader that carries the JAX
-package's parameters across.
+decode over KV caches, ring caches under a sliding window, and SSM and
+RG-LRU states) and the loader that carries the JAX package's parameters
+across.
 
 Entry points take width masks and depth gates; the global model is the
 runtime with all-ones masks.
@@ -14,8 +15,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import apply_norm, matmul
+from repro_torch.models.layers import apply_norm, matmul, softcap
 from repro_torch.models.masks import WidthMasks, full_masks
 from repro_torch.models.transformer import (AUX_LOSSES, _is_shape,  # noqa: F401
                                             init_params, param_shapes,
@@ -35,7 +37,7 @@ def _embed(params: Params, tokens: torch.Tensor, m: WidthMasks) -> torch.Tensor:
 def _head(params: Params, cfg: ArchConfig, x: torch.Tensor, m: WidthMasks):
     x = apply_norm(cfg.norm, x, params["final_norm"], m.d_model, cfg.norm_eps)
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = matmul(x, w.to(x.dtype))
+    logits = softcap(matmul(x, w.to(x.dtype)), cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         # vocab-padding rows exist only for sharding; mask their logits
         pad = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
@@ -131,19 +133,26 @@ def loss_and_grad(params: Params, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 def init_caches(params: Params, cfg: ArchConfig, batch: int, capacity: int, *,
-                dtype=torch.bfloat16):
+                window: Optional[int] = None, dtype=torch.bfloat16):
     """Per-stage stacked caches mirroring params['stages'], on the params'
-    device: a KV cache of ``capacity`` positions per attention block (no
-    ring caches yet), a conv window and an f32 state per SSD block."""
+    device: a KV cache per attention block of ``capacity`` positions, or of
+    min(capacity, window) under a sliding window (``window``, else
+    ``cfg.attn_window``), which attention then treats as a ring; a conv
+    window and an f32 state per SSD or RG-LRU block."""
     device = params["embed"].device
+    win = window if window is not None else cfg.attn_window
+    kv_cap = min(capacity, win) if win else capacity
     out = []
     for unit, reps in cfg.stages():
         stage = []
         for kind in unit:
             if kind == "attn":
                 c = {"self": attn_mod.init_kv_cache(
-                    batch, capacity, cfg.n_kv_heads, cfg.head_dim, dtype,
+                    batch, kv_cap, cfg.n_kv_heads, cfg.head_dim, dtype,
                     device)}
+            elif kind == "rglru":
+                c = {"rg": rglru_mod.init_rglru_cache(
+                    batch, cfg.d_model, cfg.rglru, dtype, device)}
             else:
                 c = {"ssm": ssm_mod.init_ssm_cache(batch, cfg.d_model,
                                                    cfg.ssm, dtype, device)}
@@ -159,7 +168,9 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             chunk_size: Optional[int] = None):
     """Process the prompt; returns (last-position logits (B, 1, V), caches).
     The caches hold ``capacity`` positions (the prompt's length if None),
-    stored in ``cache_dtype`` (SSM states stay f32).
+    or under a sliding window (``window``, else ``cfg.attn_window``) a ring
+    of min(capacity, window), stored in ``cache_dtype`` (SSM and RG-LRU
+    states stay f32).
 
     ``chunk_size``: chunked prefill, the prompt in chunks at offsets
     0, chunk, 2·chunk, ..., each against the cache so far (its attention
@@ -173,7 +184,8 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(params, tokens, m)
-    caches = init_caches(params, cfg, B, capacity or S, dtype=cache_dtype)
+    caches = init_caches(params, cfg, B, capacity or S, window=window,
+                         dtype=cache_dtype)
     win = window if window is not None else cfg.attn_window
     gs = _stage_gates(cfg, gates, device)
     if chunk_size is None or win is not None or S % chunk_size \

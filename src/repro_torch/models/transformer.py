@@ -1,6 +1,7 @@
 """Decoder stack of attention blocks (with a dense or a mixture-of-experts
-FFN) and Mamba-2 SSD blocks, FedFA width-masked and depth-gated, with
-serving caches.
+FFN), Mamba-2 SSD blocks and RG-LRU blocks, FedFA width-masked and
+depth-gated, with serving caches (KV caches, ring caches under a sliding
+window, recurrent states).
 
 Every block is residual (``x + gate_r * f_r(x)``), the property FedFA's
 layer grafting relies on (paper Appendix B).  Parameters are nested
@@ -17,6 +18,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ACTIVATIONS, apply_norm, apply_rope,
                                        dense_init, matmul)
@@ -26,16 +28,17 @@ from repro_torch.tree import from_paths, leaves_with_path, tree_map
 Params = Dict[str, Any]
 
 
-_FAMILY_KINDS = {"dense": {"attn"}, "ssm": {"ssd"}, "moe": {"attn"}}
+_FAMILY_KINDS = {"dense": {"attn"}, "ssm": {"ssd"}, "moe": {"attn"},
+                 "hybrid": {"rglru", "attn"}}
 
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise unless every part of ``cfg`` is ported."""
     if not set(cfg.layer_pattern) <= _FAMILY_KINDS.get(cfg.family, set()):
         raise NotImplementedError(f"family {cfg.family!r} is not yet ported")
-    if cfg.rope_theta <= 0.0 or cfg.norm != "rmsnorm" or cfg.logit_softcap:
-        raise NotImplementedError("learned positions, layernorm and logit "
-                                  "softcaps are not yet ported")
+    if cfg.rope_theta <= 0.0 or cfg.norm != "rmsnorm":
+        raise NotImplementedError("learned positions and layernorm are not "
+                                  "yet ported")
 
 
 def _is_shape(x) -> bool:
@@ -57,17 +60,21 @@ def param_shapes(cfg: ArchConfig) -> Params:
     def block(kind, r):
         if kind == "ssd":
             return {"ln": {"scale": (r, D)},
-                    "ssd": {k: (r,) + s for k, s in
-                            ssm_mod.ssd_param_shapes(D, cfg.ssm).items()}}
+                    "ssd": _stacked(ssm_mod.ssd_param_shapes(D, cfg.ssm), r)}
         if cfg.moe:
             ffn = _stacked(moe_mod.moe_param_shapes(D, cfg.moe), r)
         else:
             ffn = {"w_gate": (r, D, F), "w_up": (r, D, F),
                    "w_down": (r, F, D)}
-        return {"ln1": {"scale": (r, D)}, "ln2": {"scale": (r, D)},
-                "attn": {"wq": (r, D, H * hd), "wk": (r, D, K * hd),
-                         "wv": (r, D, K * hd), "wo": (r, H * hd, D)},
-                "ffn": ffn}
+        out = {"ln1": {"scale": (r, D)}, "ln2": {"scale": (r, D)},
+               "ffn": ffn}
+        if kind == "rglru":
+            out["rg"] = _stacked(rglru_mod.rglru_param_shapes(D, cfg.rglru),
+                                 r)
+        else:
+            out["attn"] = {"wq": (r, D, H * hd), "wk": (r, D, K * hd),
+                           "wv": (r, D, K * hd), "wo": (r, H * hd, D)}
+        return out
     p: Params = {"embed": (cfg.padded_vocab, D),
                  "stages": tuple(tuple(block(kind, reps) for kind in unit)
                                  for unit, reps in cfg.stages()),
@@ -81,14 +88,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype=torch.float32) -> Params:
     """Random init on the generator's device: fan-in normal for matrices
     (the MoE router in f32 whatever ``dtype``), zeros for RMSNorm scales
-    (the scale enters as ``1 + scale``), and the SSD block's own rules
-    (``ssm.init_ssd``)."""
+    (the scale enters as ``1 + scale``), and the SSD and RG-LRU blocks' own
+    rules (``ssm.init_ssd``, ``rglru.init_rglru``)."""
     paths, values = [], []
     for path, shape in leaves_with_path(param_shapes(cfg),
                                         is_leaf=_is_shape):
         paths.append(path)
         if "ssd" in path:
             values.append(ssm_mod.init_ssd(path[-1], shape, dtype, generator))
+        elif "rg" in path:
+            values.append(rglru_mod.init_rglru(path[-1], shape, dtype,
+                                               cfg.rglru, generator))
         elif path[-1] == "scale":
             values.append(torch.zeros(shape, dtype=dtype,
                                       device=generator.device))
@@ -122,7 +132,8 @@ def _attn_apply(p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
     cache and ``chunk_offset`` (chunked prefill) the chunk's queries, at
     positions chunk_offset.., attend against the whole cache once the chunk
     is written into it (slots not yet written lie past every query and are
-    masked out)."""
+    masked out).  A cache no longer than the window is a ring, as the
+    reference decides (a static property of its shape)."""
     B, S, _ = x.shape
     hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     if H % K:   # the reference fails here too (its einsum's head sizes)
@@ -133,14 +144,13 @@ def _attn_apply(p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
     v = matmul(x, p["wv"]).reshape(B, S, K, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    new_cache = None
+    new_cache, ring = None, False
     if cache is not None:
-        if window is not None:
-            raise NotImplementedError("ring caches and sliding windows on "
-                                      "the serving path are not yet ported")
-        new_cache = attn_mod.cache_extend(cache, k, v)
+        ring = window is not None and cache.capacity <= window
+        new_cache = attn_mod.cache_extend(cache, k, v, ring=ring)
     if decode:
-        out = attn_mod.attend_decode(q, new_cache, head_mask=m.heads)
+        out = attn_mod.attend_decode(q, new_cache, ring=ring, window=window,
+                                     head_mask=m.heads)
     elif new_cache is not None and chunk_offset is not None:
         out = attn_mod.attend(q, new_cache.k, new_cache.v, causal=True,
                               window=window, head_mask=m.heads,
@@ -173,6 +183,21 @@ def _block_apply(kind: str, p: Params, x, cfg: ArchConfig, m: WidthMasks, *,
                 cache=None if cache is None else cache["ssm"])
         x = x + (gate * f.to(torch.float32)).to(x.dtype)
         return x, None if cache is None else dict(cache, ssm=c_new), {}
+    if kind == "rglru":
+        h = apply_norm(cfg.norm, x, p["ln1"], dm, cfg.norm_eps)
+        if decode:
+            f, c_new = rglru_mod.rglru_decode(
+                p["rg"], h, cfg.rglru, cfg.d_model, cache["rg"],
+                mask_dr=m.d_rnn, d_model_mask=dm)
+        else:
+            f, c_new = rglru_mod.rglru_block(
+                p["rg"], h, cfg.rglru, cfg.d_model, mask_dr=m.d_rnn,
+                d_model_mask=dm, cache=None if cache is None else cache["rg"])
+        x = x + (gate * f.to(torch.float32)).to(x.dtype)
+        h = apply_norm(cfg.norm, x, p["ln2"], dm, cfg.norm_eps)
+        f = _ffn_apply(p["ffn"], h, cfg, m)
+        x = x + (gate * f.to(torch.float32)).to(x.dtype)
+        return x, None if cache is None else dict(cache, rg=c_new), {}
     h = apply_norm(cfg.norm, x, p["ln1"], dm, cfg.norm_eps)
     a, c_new = _attn_apply(p["attn"], h, cfg, m, positions=positions,
                            window=window,

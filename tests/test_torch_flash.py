@@ -94,9 +94,13 @@ def test_attention_ref_matches_reference(shape, causal, window, dtype):
         _within_bf16_step(got, want)
 
 
+# recurrentgemma-2b's heads: 10 query heads over 1 kv head of 256
+WIDE = (1, 192, 192, 10, 1, 256)
+
+
 @pytest.mark.parametrize("shape,causal,window", [
     ((2, 192, 192, 4, 1, 64), True, 96), ((1, 64, 320, 2, 2, 32), False,
-                                          None)])
+                                          None), (WIDE, True, 96)])
 def test_attention_matches_interpret_kernel(shape, causal, window):
     """The wrapper on a CPU tensor (the plain version; no launch) against
     the Pallas kernel in interpret mode, at bq = bk = 64 as the sweep."""
@@ -164,7 +168,8 @@ def _pallas(shape, causal, window, seed):
     return np.asarray(out)
 
 
-@pytest.mark.parametrize("shape,causal,window", SWEEP + [(LONG, True, None)])
+@pytest.mark.parametrize("shape,causal,window", SWEEP + [
+    (LONG, True, None), (WIDE, True, 96), (WIDE, False, None)])
 def test_split_tf32_ref_matches_interpret_kernel(shape, causal, window):
     """The CUDA kernel's f32 route takes each product as three TF32
     products (lo·hi′ + hi·lo′ + hi·hi′); its emulation on the f32 bits

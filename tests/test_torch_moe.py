@@ -85,24 +85,30 @@ def _grad_close(got, want, what):
 # Width masks
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", [PHI, ARCTIC])
+@pytest.mark.parametrize("arch", [PHI, ARCTIC, "recurrentgemma-2b"])
 @pytest.mark.parametrize("w", [0.1, 0.25, 0.5, 0.75, 1.0])
 def test_width_spec_and_masks_match_reference(arch, w):
-    """n_experts = max(top_k, round(w·E)), the experts a prefix."""
+    """n_experts = max(top_k, round(w·E)), the experts a prefix; the hybrid's
+    d_rnn = max(8, ⌊w·d_rnn⌋ rounded down to 8) below full width, a
+    prefix too."""
     for cut in (False, True):
         cfg, jcfg = get_arch(arch), jget_arch(arch)
         if cut:
             cfg, jcfg = cfg.reduced(), jcfg.reduced()
         spec, jspec = masks.width_spec(cfg, w), jmasks.width_spec(jcfg, w)
         assert [f.name for f in dataclasses.fields(spec)] == \
-            [f for f in ("d_model", "n_heads", "n_kv_heads", "d_ff",
-                         "n_experts", "ssm_heads")]
-        assert dataclasses.asdict(spec) == {
-            k: v for k, v in dataclasses.asdict(jspec).items()
-            if k != "d_rnn"}
-        assert spec.n_experts >= cfg.moe.top_k
+            [f.name for f in dataclasses.fields(jspec)]
+        assert dataclasses.asdict(spec) == dataclasses.asdict(jspec)
         m, jm = masks.width_masks(cfg, w), jmasks.width_masks(jcfg, w)
-        for f in ("d_model", "heads", "kv_heads", "d_ff", "experts"):
+        fields = ["d_model", "heads", "kv_heads", "d_ff"]
+        if cfg.moe:
+            assert spec.n_experts >= cfg.moe.top_k
+            fields.append("experts")
+        else:
+            assert spec.d_rnn % 8 == 0 and (w < 1.0) == bool(
+                (m.d_rnn == 0).any())
+            fields.append("d_rnn")
+        for f in fields:
             np.testing.assert_array_equal(getattr(m, f).numpy(),
                                           np.asarray(getattr(jm, f)))
         assert m.ssm_heads is None and jm.ssm_heads is None

@@ -205,6 +205,33 @@ def test_serve_cli_runs_on_cpu():
         eng.generate(out["prompts"][:, :8], max_new=10)
 
 
+def test_engine_refuses_a_ring_shorter_than_the_window():
+    """A windowed request longer than the cache: with capacity 16 under a
+    window of 32 the ring would overwrite positions still inside the
+    window, which the reference does silently; the Engine refuses it."""
+    cfg = get_arch("smollm-135m").reduced()
+    params = model.init_params(cfg, torch.Generator().manual_seed(0))
+    eng = serve.Engine(cfg, params, capacity=16, window=32)
+    prompts = synthetic.lm_stream(cfg.vocab_size, 2, 12, seed=1)
+    with pytest.raises(ValueError, match="ring shorter than the window 32"):
+        eng.generate(prompts, max_new=6)
+    assert eng.generate(prompts, max_new=5).shape == (2, 5)   # 16 positions
+
+
+def test_engine_serves_past_capacity_through_a_window_ring():
+    """Capacity 24 over a window of 8: the cache is a ring of 8, which holds
+    every position the window can see, so a prompt of 20 and 10 new tokens
+    (29 positions, past the capacity) run, greedy tokens equal to the
+    reference Engine's."""
+    jcfg, jp, cfg, params = _both("smollm-135m")
+    prompts = synthetic.lm_stream(cfg.vocab_size, 2, 20, seed=3)
+    got = serve.Engine(cfg, params, capacity=24, window=8).generate(
+        prompts, max_new=10)
+    want = JEngine(jcfg, jp, capacity=24, window=8).generate(prompts,
+                                                              max_new=10)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
 def test_serve_cuts_depth():
     cfg, params = serve.build("phi3.5-moe-42b-a6.6b", n_layers=2,
                               device="cpu")
@@ -235,11 +262,26 @@ def test_lm_stream_matches_reference_at_a_wide_vocab():
 
 
 def test_unported_serving_options_raise():
-    cfg = get_arch("smollm-135m").reduced()
-    params = model.init_params(cfg, torch.Generator().manual_seed(0))
-    toks = {"tokens": _tt(_tokens(cfg, S=8))}
-    with pytest.raises(NotImplementedError, match="windows"):
-        model.prefill(params, cfg, toks, window=4)
-    # a window takes the prompt in one shot even when a chunk is asked for
-    with pytest.raises(NotImplementedError, match="windows"):
-        model.prefill(params, cfg, toks, window=4, chunk_size=4)
+    """Windowed prefill, which the port once refused, now runs: the
+    4-layer smollm-135m with window 4 over 12 tokens at capacity 16 (a ring
+    of 4 that the prompt wraps) against the reference's — logits, and the
+    ring's slots and position equal the reference's; a chunk asked for
+    with a window takes the prompt in one shot (the same logits and
+    caches)."""
+    jcfg, jp, cfg, params = _both("smollm-135m")
+    toks = _tokens(cfg, S=12)
+    jlg, jc, _ = jmodel.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)},
+                                capacity=16, window=4, cache_dtype=jnp.float32)
+    with torch.no_grad():
+        lg, c = model.prefill(params, cfg, {"tokens": _tt(toks)}, capacity=16,
+                              window=4, cache_dtype=torch.float32)
+        lg_c, c_c = model.prefill(params, cfg, {"tokens": _tt(toks)},
+                                  capacity=16, window=4, chunk_size=4,
+                                  cache_dtype=torch.float32)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL)
+    # stacked over the repeats: (R, B, capacity, K, hd)
+    assert c[0][0]["self"].k.shape[2] == 4 and int(model._cache_pos(c)) == 12
+    _close_caches(c, jc, bf16=False)
+    assert torch.equal(lg, lg_c)
+    for a, b in zip(_cache_leaves(c), _cache_leaves(c_c)):
+        assert torch.equal(a, b)

@@ -23,8 +23,9 @@ from repro.launch.train import client_arch_pool as jax_arch_pool
 from repro.models import masks as jmasks
 from repro.optim import optimizers as jopt
 from repro.optim import schedules as jsched
-from repro_torch.configs import (ArchConfig, MAMBA2_130M, SMOLLM_135M,
-                                 get_arch)
+from repro.configs.base import RGLRUConfig as JRGLRUConfig
+from repro_torch.configs import (ArchConfig, MAMBA2_130M, RGLRUConfig,
+                                 SMOLLM_135M, get_arch)
 from repro_torch.core import flat, masking
 from repro_torch.data import partition, pipeline, synthetic
 from repro_torch.launch.train import client_arch_pool, fl_config
@@ -44,10 +45,18 @@ def _np(x):
     return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
 
 
-# the dense and moe registry entries copied besides smollm-135m
+# the dense, moe and hybrid registry entries copied besides smollm-135m
 _DENSE_COPIES = ("minicpm-2b", "tinyllama-1.1b", "codeqwen1.5-7b",
                  "fedfa-paper-transformer", "phi3.5-moe-42b-a6.6b",
-                 "arctic-480b")
+                 "arctic-480b", "recurrentgemma-2b")
+
+
+def _rglru_equal(a: RGLRUConfig, b, d_model: int) -> None:
+    """The port's own RGLRUConfig against the reference's."""
+    assert [x.name for x in dataclasses.fields(a)] == \
+        [x.name for x in dataclasses.fields(b)]
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert a.d_rnn(d_model) == b.d_rnn(d_model)
 
 
 def _cfg_fields_equal(port: ArchConfig, ref) -> None:
@@ -61,6 +70,8 @@ def _cfg_fields_equal(port: ArchConfig, ref) -> None:
             assert [x.name for x in dataclasses.fields(a)] == \
                 [x.name for x in dataclasses.fields(b)]
             assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        elif f.name == "rglru" and a is not None:
+            _rglru_equal(a, b, port.d_model)
         else:
             assert a == b, f.name
     assert port.padded_vocab == ref.padded_vocab
@@ -71,10 +82,14 @@ def _cfg_fields_equal(port: ArchConfig, ref) -> None:
 
 
 @pytest.mark.parametrize("which", ["full", "reduced", "fixture",
-                                   "mamba2-full", "mamba2-reduced"]
+                                   "mamba2-full", "mamba2-reduced",
+                                   "rglru-defaults"]
                          + [f"{a}-{cut}" for a in _DENSE_COPIES
                             for cut in ("full", "reduced")])
 def test_config_copy_matches_reference(which):
+    if which == "rglru-defaults":
+        _rglru_equal(RGLRUConfig(), JRGLRUConfig(), 2560)
+        return
     if which.rsplit("-", 1)[0] in _DENSE_COPIES:
         arch, cut = which.rsplit("-", 1)
         port, ref = get_arch(arch), jax_get_arch(arch)
@@ -95,8 +110,10 @@ def test_config_copy_matches_reference(which):
 def test_unported_arch_raises():
     assert get_arch("smollm-135m") is SMOLLM_135M
     assert get_arch("mamba2-130m") is MAMBA2_130M
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_arch("recurrentgemma-2b")
+    assert get_arch("recurrentgemma-2b").family == "hybrid"
+    for arch in ("whisper-base", "internvl2-76b"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            get_arch(arch)
 
 
 def test_population_copy_matches_reference():
@@ -186,7 +203,7 @@ def test_client_runtimes_match_reference(mode):
         assert masks.width_spec(CFG, a.width_mult).__dict__ == {
             k: v for k, v in jmasks.width_spec(JCFG, a.width_mult).__dict__
             .items() if k in ("d_model", "n_heads", "n_kv_heads", "d_ff",
-                              "n_experts", "ssm_heads")}
+                              "n_experts", "ssm_heads", "d_rnn")}
     st = masks.stack_masks([a.masks(CFG) for a in archs])
     jst = jmasks.stack_masks([a.masks(JCFG) for a in jarchs])
     np.testing.assert_array_equal(_np(st.d_ff), _np(jst.d_ff))
