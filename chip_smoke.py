@@ -25,7 +25,8 @@
    entry on the card and the CPU (minicpm-2b with AdamW, WSD and
    grad_accum 2; smollm-135m also with grad_accum 2 and bf16 momentum;
    arctic-480b with its dense residual branch; recurrentgemma-2b's RG-LRU
-   blocks and softcapped logits): losses rtol
+   blocks and softcapped logits; whisper-base with numpy frames in every
+   batch): losses rtol
    1e-3, SGD's weights rtol 1e-3 / atol 1e-4; AdamW's first step moves
    each weight by the rate times the sign of its gradient, so a weight
    whose gradient is at the f32 noise may move the other way on each
@@ -34,7 +35,8 @@
    held at rtol 1e-3 / atol 1e-4 wherever the CPU's gradient lies above
    the noise (1e-5 of its leaf's largest), and the free-running weights
    above the first step's noise within 1e-3 of the update in relative
-   L2.  A
+   L2.  whisper-base's ``forward`` and ``loss_fn`` at ``reduced()`` at
+   widths 1 and 0.5 (rtol 1e-3 / atol 1e-4).  A
    per-round ``--agg-engine tree`` round on the card against the CPU's
    (rtol 1e-3 / atol 1e-4) and against the card's flat round (rtol 1e-4
    / atol 1e-5), and a ``use_kernel=False`` round on the card: the kernel
@@ -97,6 +99,13 @@
    with 2 prompts of 200 and 24 new tokens, and tinyllama-1.1b
    ``reduced()`` at ``Engine(window=64)``, capacity 128, 2 prompts of 100
    and 24 new tokens: each ring wraps in prefill and again in decode.
+   Then whisper-base with numpy frames, at the same tolerances:
+   ``reduced()`` (64 frames) with 4 prompts of 48 and 8 new tokens, and at
+   its published width cut to 2 decoder layers with 1 prompt of 2,816
+   against 1,500 frames and 4 new tokens: on the card its prefill takes
+   ``flash_attention`` 4 times (a layer's causal self attention, 2,816²,
+   and non-causal cross attention, 2,816 × 1,500 > 2048²), on the CPU
+   ``attend_blocked``.
 8. Drives the serving path at full size: ``launch.serve`` with
    ``--arch mamba2-130m --full-size --batch 8 --prompt-len 1024
    --max-new 32`` (counts reset just before; fails unless
@@ -121,7 +130,19 @@
    layer) at hd 256 and window 2,048 and nothing else, the first two
    launches held against ``attention_ref`` on the card, every token in the
    vocabulary; prefill ms, decode ms a step, tokens/s and peak memory of a
-   first and a warm request.
+   first and a warm request.  Then whisper-base at its published size
+   (130,873,344 parameters, seeded random f32 weights drawn on the card):
+   the Engine on 8 prompts of 4,096 tokens against 1,500 numpy frames and
+   32 new — ``flash_attention`` exactly 12 times, all in prefill (6 causal
+   at (4,096, 4,096), 6 non-causal at (4,096, 1,500)), nothing else, the
+   first launch of each kind held against ``attention_ref`` on the card —
+   timed as the others.  Then the aggregation engine
+   (``flat.aggregate_buffers``, fedfa) twice on an m = 8 cohort of
+   full-size whisper-base trees (4.2 GB f32; no FL driver: ``run_fl``
+   raises for it, as the reference fails): exactly the launches by shape
+   derived from its layout (30 ``quantile_fused``, 28 ``hist_level``, 2
+   ``scaled_accum`` an aggregation), its kernels then held on the rows it
+   passed them (as for mamba2-130m's path), one aggregation timed.
 9. Holds each kernel against its plain PyTorch version at the main path's
    shapes (weighted sums within 1e-5 of the summed magnitudes; thresholds
    bit-equal; trimmed sums of squares at rtol 1e-5; the SSD's y and state
@@ -145,7 +166,9 @@
    shape on the inputs that path passed it, at hd 256 on the sweep's masks
    and q offsets 1 and 128 and on the inputs recurrentgemma-2b's request
    passed it (f32 and bf16; SDPA timed with the window as a boolean mask),
-   and refusing inputs that need a gradient or a negative offset; the
+   on the inputs whisper-base's request passed it (causal (8, 4,096, 8,
+   64) and non-causal against (8, 1,500, 8, 64); f32 and bf16), and
+   refusing inputs that need a gradient or a negative offset; the
    aggregation kernels also on the arguments mamba2-130m's path passed
    them (``ssd_intra_chunk`` on the evaluation's inputs of each shape,
    half of every chunk padding, at the serving tolerance), and on each
@@ -694,18 +717,30 @@ def check_fl_launches(hist: dict, arch: str, update_dtype: str,
 
 
 # dense train-step cases on the card against the CPU: (arch, overrides) —
-# every dense, moe and hybrid registry entry at its reduced() cut (the
-# paper transformer at its published size: its cut cannot run), minicpm-2b
-# through AdamW's generic accumulation and smollm-135m through SGD's fused
-# momentum; arctic-480b with its dense residual branch
+# every dense, moe, hybrid and audio registry entry at its reduced() cut
+# (the paper transformer at its published size: its cut cannot run),
+# minicpm-2b through AdamW's generic accumulation and smollm-135m through
+# SGD's fused momentum; arctic-480b with its dense residual branch;
+# whisper-base with frames in every batch
 PHI = "phi3.5-moe-42b-a6.6b"
 RG = "recurrentgemma-2b"
+WHISPER = "whisper-base"
 DENSE_CASES = [("smollm-135m", {}), ("tinyllama-1.1b", {}),
                ("codeqwen1.5-7b", {}), ("fedfa-paper-transformer", {}),
                ("minicpm-2b", {"grad_accum": 2}),
                ("smollm-135m", {"grad_accum": 2,
                                 "momentum_dtype": "bfloat16"}),
-               (PHI, {}), ("arctic-480b", {}), (RG, {})]
+               (PHI, {}), ("arctic-480b", {}), (RG, {}), (WHISPER, {})]
+
+
+def numpy_frames(cfg, batch: int, seed: int):
+    """An encoder-decoder's frames (batch, n_frames, d_model) at scale 0.02
+    from a numpy generator, as a CPU tensor (None without an encoder)."""
+    if cfg.encoder is None:
+        return None
+    return torch.from_numpy(0.02 * np.random.default_rng(seed)
+                            .standard_normal((batch, cfg.encoder.n_frames,
+                                              cfg.d_model), dtype=np.float32))
 
 
 def flat_np(tree) -> np.ndarray:
@@ -754,7 +789,8 @@ def small_dense_check() -> dict:
     """Three train steps (``launch.steps.make_train_step``, steps 1-3: WSD's
     warmup makes step 0's rate 0) of each ``DENSE_CASES`` entry on the card
     and on the CPU from the same weights and tokens (batch 4, sequence
-    16): losses at rtol 1e-3, SGD's parameters at rtol 1e-3 / atol 1e-4;
+    16; an encoder-decoder's frames from numpy, the same on both): losses
+    at rtol 1e-3, SGD's parameters at rtol 1e-3 / atol 1e-4;
     with AdamW, each step also taken on the card from the CPU's state
     (``adamw_step_close``) and the free-running steps held by
     ``adamw_update_close``."""
@@ -772,6 +808,7 @@ def small_dense_check() -> dict:
         cfg = cfg.replace(**over)
         params = init_params(cfg, torch.Generator().manual_seed(0))
         data = synthetic.lm_stream(cfg.vocab_size, 12, 16, seed=2)
+        frames = [numpy_frames(cfg, 4, seed=s) for s in range(1, 4)]
         mdt = torch.bfloat16 if cfg.momentum_dtype == "bfloat16" \
             else torch.float32
         adam = cfg.optimizer == "adamw"
@@ -785,10 +822,13 @@ def small_dense_check() -> dict:
             for s in range(1, 4):
                 tok = torch.as_tensor(data[(s - 1) * 4:s * 4],
                                       dtype=torch.int64, device=dev)
+                batch = {"tokens": tok}
+                if frames[s - 1] is not None:
+                    batch["frames"] = frames[s - 1].to(dev)
                 if adam and dev == "cpu":   # the state and the gradient
-                    cpu_steps.append((p, st, tok, loss_and_grad(
-                        p, cfg, {"tokens": tok}, task="lm")[1]))
-                p, st, loss = fn(p, st, {"tokens": tok}, s)
+                    cpu_steps.append((p, st, batch, loss_and_grad(
+                        p, cfg, batch, task="lm")[1]))
+                p, st, loss = fn(p, st, batch, s)
                 if adam and dev == "cpu":
                     cpu_steps[-1] += (p,)
                 losses.append(float(loss))
@@ -797,11 +837,11 @@ def small_dense_check() -> dict:
                                    err_msg=name)
         if adam:
             to_card = lambda t: tree_map(lambda x: x.cuda(), t)
-            for s, (p0, st0, tok, g, p1) in enumerate(cpu_steps, 1):
+            for s, (p0, st0, batch, g, p1) in enumerate(cpu_steps, 1):
                 forced, _, _ = fn(to_card(p0), {"step": st0["step"],
                                                 "m": to_card(st0["m"]),
                                                 "v": to_card(st0["v"])},
-                                  {"tokens": tok.cuda()}, s)
+                                  to_card(batch), s)
                 adamw_step_close(flat_np(forced), flat_np(p1), g,
                                  f"dense {name} step {s} from the CPU's state")
             adamw_update_close(res["cuda"][0], res["cpu"][0], flat_np(params),
@@ -1282,6 +1322,300 @@ def flash_wide_rows(inputs, launches: int) -> list:
     return out
 
 
+def small_audio_check() -> dict:
+    """whisper-base at ``reduced()`` (2 layers, d_model 256, 64 frames) on
+    the card and on the CPU, same weights, tokens and numpy frames:
+    ``forward``'s logits and ``loss_fn``'s loss at widths 1 and 0.5 (rtol
+    1e-3 / atol 1e-4, vocabulary padding aside)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.models.masks import width_masks
+    from repro_torch.models.model import forward, init_params, loss_fn
+    from repro_torch.tree import tree_map
+    cfg = get_arch(WHISPER).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tok = torch.as_tensor(synthetic.lm_stream(cfg.vocab_size, 4, 32, seed=3),
+                          dtype=torch.int64)
+    frames = numpy_frames(cfg, 4, seed=3)
+    out = {}
+    for w in (1.0, 0.5):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            batch = {"tokens": tok.to(dev), "frames": frames.to(dev)}
+            kw = dict(masks=width_masks(cfg, w).to(dev))
+            p = tree_map(lambda t: t.to(dev), params)
+            with torch.no_grad():
+                logits = forward(p, cfg, batch, **kw)[0]
+                loss = loss_fn(p, cfg, batch, task="lm", **kw)[0]
+            res[dev] = (logits[..., :cfg.vocab_size].cpu().numpy(),
+                        float(loss))
+        np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-3,
+                                   atol=1e-4, err_msg=f"whisper logits w={w}")
+        np.testing.assert_allclose(res["cuda"][1], res["cpu"][1], rtol=1e-3,
+                                   err_msg=f"whisper loss w={w}")
+        out[f"w={w}"] = {"loss_cuda": res["cuda"][1],
+                         "loss_cpu": res["cpu"][1],
+                         "logits_max_abs_diff": float(np.abs(
+                             res["cuda"][0] - res["cpu"][0]).max())}
+    return out
+
+
+def audio_full_size(kernels, card: str, batch: int = 8,
+                    prompt_len: int = 4096, max_new: int = 32) -> tuple:
+    """whisper-base at its published size (6 + 6 layers, d_model 512, 8
+    heads of 64, vocabulary 51,865, a ``pos_embed`` of 65,536 rows;
+    130,873,344 parameters), seeded random f32 weights drawn on the card,
+    served by ``launch.serve``'s Engine: 8 prompts of 4,096 tokens against
+    1,500 numpy frames each and 32 greedy tokens, counts reset just before
+    each request.  Fails unless ``flash_attention`` ran exactly 12 times,
+    all in prefill — once a decoder layer causal at (4,096, 4,096) and once
+    non-causal at (4,096, 1,500) (the encoder's 1,500² stays dense, below
+    2048², and decode's single query never takes it) — no other kernel
+    ran, and every token is in the vocabulary.  Timed twice (the second
+    warm), then a prefill alone with the first launch of each kind held
+    against ``attention_ref`` on the card (f32 within 2e-5), whose inputs
+    feed ``flash_audio_rows``.  Floors: a decode step reads ≈ 0.28 GB of
+    f32 weights (all but the embedding and position tables) and recomputes
+    the cross k and v (75 GFLOP), 1.1 ms at 67 TFLOP/s; the prefill's f32
+    GEMMs are 1.97 TFLOP (encoder 0.45, decoder 1.44 with its cross q and
+    o, the cross k and v 0.08), 29 ms at 67 TFLOP/s."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import leaves
+    cfg = get_arch(WHISPER)
+    T = cfg.encoder.n_frames
+    collect_garbage()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    check(n == 130_873_344, f"{WHISPER} has {n} parameters")
+    out = {"arch": WHISPER, "n_params": n, "weights_gb": n * 4 / 1e9,
+           "init_s": time.perf_counter() - t0, "batch": batch,
+           "prompt_len": prompt_len, "max_new": max_new, "n_frames": T,
+           "card": card}
+    eng = serve.Engine(cfg, params, capacity=prompt_len + max_new + 8)
+    prompts = synthetic.lm_stream(cfg.vocab_size, batch, prompt_len, seed=1)
+    frames = numpy_frames(cfg, batch, seed=1)
+    kinds = {(prompt_len, prompt_len, True): cfg.n_layers,
+             (prompt_len, T, False): cfg.n_layers}
+    orig = ops.attention
+    for run in ("first", "warm"):
+        calls = []
+
+        def rec(q, k, v, **kw):
+            calls.append((q.shape[1], k.shape[1], kw.get("causal", True)))
+            return orig(q, k, v, **kw)
+        for k in kernels:
+            k.reset()
+        collect_garbage()
+        torch.cuda.reset_peak_memory_stats()
+        ops.attention = rec
+        try:
+            tok = eng.generate(prompts, max_new=max_new, frames=frames)
+        finally:
+            ops.attention = orig
+        launches = {k.symbol: k.launches for k in kernels}
+        by_kind = {key: calls.count(key) for key in set(calls)}
+        check(launches == {k.symbol: 2 * cfg.n_layers
+                           if k.symbol == "flash_attention" else 0
+                           for k in kernels} and by_kind == kinds,
+              f"{WHISPER} serving launches {launches}, by (Sq, Sk, causal) "
+              f"{by_kind}, expected {kinds}")
+        check(tok.shape == (batch, max_new)
+              and bool(((tok >= 0) & (tok < cfg.vocab_size)).all()),
+              f"{WHISPER} serving tokens {tok.shape} out of "
+              f"[0, {cfg.vocab_size})")
+        t = eng.timing
+        out[run] = {"prefill_ms": t["prefill_s"] * 1e3,
+                    "decode_ms_per_step": t["decode_s"] * 1e3
+                    / t["decode_steps"],
+                    "tokens_per_s": batch * max_new
+                    / (t["prefill_s"] + t["decode_s"]),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "launches": launches,
+                    "launches_by_kind": [[list(key), c]
+                                         for key, c in sorted(by_kind.items())]}
+    inputs, errs = {}, []
+
+    def check_first(q, k, v, **kw):
+        o = orig(q, k, v, **kw)
+        key = kw.get("causal", True)
+        if key not in inputs:
+            want = ref.attention_ref(q, k, v, **kw)
+            torch.testing.assert_close(o, want, rtol=2e-5, atol=2e-5)
+            errs.append(float((o - want).abs().max()))
+            inputs[key] = (q, k, v)
+            del want
+        return o
+    ops.attention = check_first
+    try:
+        eng.generate(prompts, max_new=1, frames=frames)
+    finally:
+        ops.attention = orig
+    check(set(inputs) == {True, False},
+          f"{WHISPER} prefill kinds {sorted(inputs)}")
+    out["checked_launches"], out["max_abs_err"] = len(errs), max(errs)
+    log(f"{WHISPER} serving {batch} x {prompt_len} against {T} frames: "
+        f"prefill {out['warm']['prefill_ms']:.1f} ms, decode "
+        f"{out['warm']['decode_ms_per_step']:.2f} ms a step, "
+        f"{out['warm']['tokens_per_s']:.1f} tokens/s warm, peak "
+        f"{out['warm']['peak_gib']:.2f} GiB")
+    return out, inputs, cfg.n_layers
+
+
+def flash_audio_rows(inputs: dict, launches: int) -> list:
+    """``flash_attention`` on the inputs the full-size whisper-base request
+    passed its first launch of each kind — q (8, 4096, 8, 64) against k, v
+    (8, 4096, 8, 64) causal, and against k, v (8, 1500, 8, 64) non-causal
+    (1,500 = 23 kv tiles of 64 and 28 rows, or 11 of 128 and 92) — f32 as
+    the path ran them and the same values in bf16, against
+    ``attention_ref`` (2e-5, 5e-2), f32 also within 1e-5 of its 3xTF32
+    emulation on the first sequence; the kernel, the plain version and
+    SDPA (``is_causal`` or no mask) timed.  The bound counts the kept (q,
+    k) pairs, three TF32 products each for f32 and one bf16 product for
+    bf16, and q, k, v and o once."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    out = []
+    for causal in (True, False):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dt) for t in inputs[causal])
+            B, Sq, H, hd = q.shape
+            Sk, K = k.shape[1], k.shape[2]
+            kw = dict(causal=causal)
+            got = ops.attention(q, k, v, **kw).float()
+            want = ref.attention_ref(q, k, v, **kw).float()
+            tol = 2e-5 if dt == torch.float32 else 5e-2
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            err, split_err = float((got - want).abs().max()), None
+            del want
+            if dt == torch.float32:
+                emul = ref.attention_split_tf32_ref(q[:1], k[:1], v[:1], **kw)
+                torch.testing.assert_close(got[:1], emul, rtol=1e-5,
+                                           atol=1e-5)
+                split_err = float((got[:1] - emul).abs().max())
+                del emul
+            del got
+            products = 4 * B * H * hd * int(attention_keep(Sq, Sk, causal,
+                                                           None).sum())
+            b, by = bound(2 * B * (Sq * H + Sk * K) * hd * q.element_size(),
+                          *((3 * products, TF32_OPS_PER_S)
+                            if dt == torch.float32
+                            else (products, BF16_OPS_PER_S)))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            out.append({
+                "name": "flash_attention",
+                "dtype": "f32" if dt == torch.float32 else "bf16",
+                "path": f"{WHISPER} serving (published size, 8 x 4,096, "
+                        f"{'self' if causal else 'cross'} attention)",
+                "shape": [B, Sq, Sk, H, K, hd], "causal": causal,
+                "window": None, "q_offset": 0, "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+                "launches": launches if dt == torch.float32 else 0,
+                "max_abs_err": err, "max_abs_err_vs_3xtf32": split_err,
+                "ms": time_ms(lambda: ops.attention(q, k, v, **kw), 10),
+                "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v, **kw),
+                                    2, warmup=1),
+                "bound_ms": b, "bound_by": by,
+                "library_ms": time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal), 5, warmup=1)})
+            log(f"flash_attention whisper {'causal' if causal else 'cross'} "
+                f"{out[-1]['dtype']}: {out[-1]['ms']:.3f} ms (bound "
+                f"{b:.3f}, plain {out[-1]['plain_ms']:.2f}, SDPA "
+                f"{out[-1]['library_ms']:.3f})")
+            del q, k, v, qt, kt, vt
+    return out
+
+
+def audio_aggregation(kernels, card: str, m: int = 8) -> tuple:
+    """The aggregation engine on an m = 8 cohort of full-size whisper-base
+    trees (8 x 130,873,344 f32, 4.2 GB): ``flat.aggregate_buffers``, fedfa,
+    the clients of the ``both`` pool (widths 0.25-1, section depths 1-2 of
+    (2, 2, 1, 1): grafting fills stage 0's missing rows, never the
+    encoder's), twice, counts reset just before.  No FL driver: ``run_fl``
+    raises for whisper, as the reference fails (ROADMAP queue 3 item 25).
+    Fails unless every kernel ran exactly its launches by shape, derived
+    from the layout beforehand as ``fl_expected_launches`` derives them
+    (``main_path_shapes``: a ``quantile_fused`` per single-pass leaf, four
+    ``hist_level`` levels per longer leaf, two ``scaled_accum`` an
+    aggregation) and the result is finite; the first aggregation's kernel
+    arguments are recorded for ``fl_path_kernel_rows`` and the second
+    aggregation is timed."""
+    from repro_torch.core import flat
+    from repro_torch.kernels.fedfa_agg import ops as agg_ops
+    from repro_torch.kernels.fedfa_quantile import multilevel, ops
+    from repro_torch.launch import train
+    from repro_torch.models.masks import stack_masks
+    from repro_torch.models.model import init_params
+    cfg = train.fl_config(WHISPER, "cls", 10, full_size=True)
+    n, single, multi = main_path_shapes(m, WHISPER)
+    want = fl_expected_launches(WHISPER, "f32", m=m)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    collect_garbage()
+    params = init_params(cfg, gen)
+    index = flat.FlatIndex(params)
+    check(index.n == n, f"{WHISPER} flat layout {index.n} != {n}")
+    g = flat.flatten(index, params)
+    del params
+    x = g[None] + 0.01 * torch.randn((m, n), generator=gen, device="cuda")
+    pool = train.client_arch_pool(cfg, "both")
+    archs = [pool[c % len(pool)] for c in range(m)]
+    masks = stack_masks([a.masks(cfg) for a in archs]).to("cuda")
+    gates = torch.stack([a.gates(cfg) for a in archs]).cuda()
+    gmaps = torch.stack([a.graft(cfg) for a in archs]).cuda()
+    n_data = torch.arange(1, m + 1, dtype=torch.float32, device="cuda")
+    spec = {"quantile_fused": (ops, sum(single.values()), None),
+            "row_trimmed_stats_multilevel": (multilevel, sum(multi.values()),
+                                             "cpu"),
+            "scaled_accum": (agg_ops, 2, "cpu")}
+    calls = {name: [] for name in spec}
+    calls["ssd_intra_chunk"] = []
+    for k in kernels:
+        k.reset()
+    torch.cuda.reset_peak_memory_stats()
+    origs = {name: recording(mod, name, limit, calls[name], to)
+             for name, (mod, limit, to) in spec.items()}
+    try:
+        new = flat.aggregate_buffers(index, g, x, cfg, masks, gates, gmaps,
+                                     n_data)
+        torch.cuda.synchronize()
+    finally:
+        for name, (mod, *_) in spec.items():
+            setattr(mod, name, origs[name])
+    t0 = time.perf_counter()
+    new = flat.aggregate_buffers(index, g, x, cfg, masks, gates, gmaps, n_data)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    hist = {"launches": {k.symbol: k.launches for k in kernels},
+            "by_shape": {k.symbol: dict(k.by_shape) for k in kernels},
+            "calls": calls}
+    check(bool(torch.isfinite(new).all()), f"{WHISPER} aggregate not finite")
+    for sym, w in want.items():
+        got = hist["by_shape"][sym] if isinstance(w, dict) \
+            else hist["launches"][sym]
+        total = sum(w.values()) if isinstance(w, dict) else w
+        check(got == w and hist["launches"][sym] == total,
+              f"{WHISPER} aggregation: {sym} launched {got} "
+              f"({hist['launches'][sym]} in all), expected {w}")
+    res = {"arch": WHISPER, "m": m, "n": n, "aggregations": 2,
+           "aggregate_ms": ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": hist["launches"],
+           "launches_by_shape": {
+               sym: [[list(shape), c] for shape, c in by.items()]
+               for sym, by in hist["by_shape"].items() if by},
+           "card": card}
+    del x, g, new
+    log(f"{WHISPER} aggregation, m = {m}: {ms:.1f} ms, launches "
+        f"{hist['launches']}")
+    return res, hist
+
+
 def dense_path(kernels, steps: int = 10) -> dict:
     """``run_dense("smollm-135m", full_size=True)`` at batch 8 x sequence
     64 for 1 + ``steps`` steps (counts reset just before): finite losses,
@@ -1382,8 +1716,10 @@ def main_path_shapes(m: int, arch: str = "smollm-135m",
                      full_size: bool = True):
     """(N, single-pass row shapes, multilevel row shapes) of ``arch``'s FL
     path at full size (smollm-135m's is the main path), or at the CLI's
-    4-layer cut: each leaf's rows (m·lead, rest), split by the JAX dispatch
-    rule; each as {shape: number of leaves}, smallest first."""
+    4-layer cut: each leaf's rows (m·lead, rest; the decoder's and the
+    encoder's depth-stacked leaves a row per layer), split by the JAX
+    dispatch rule; each as {shape: number of leaves}, smallest first."""
+    from repro_torch.core.flat import _path_stage_info
     from repro_torch.kernels.fedfa_quantile.ops import _LANES, _SINGLE_PASS_ELEMS
     from repro_torch.launch import train
     from repro_torch.models.transformer import _is_shape, param_shapes
@@ -1391,7 +1727,7 @@ def main_path_shapes(m: int, arch: str = "smollm-135m",
     cfg = train.fl_config(arch, "cls", 10, full_size=full_size)
     leaves = list(leaves_with_path(param_shapes(cfg), is_leaf=_is_shape))
     n = sum(int(np.prod(s)) for _, s in leaves)
-    rows = [(m * s[0], int(np.prod(s[1:]))) if path[0] == "stages"
+    rows = [(m * s[0], int(np.prod(s[1:]))) if _path_stage_info(path)[0]
             else (m, int(np.prod(s))) for path, s in leaves]
     shapes = sorted(set(rows), key=lambda r: r[0] * r[1])
     single = {r: rows.count(r) for r in shapes
@@ -1680,7 +2016,7 @@ def kernel_checks(launches: dict, shapes: dict, quantile_calls: dict) -> list:
 
 
 def hist_level_rows(x, s, q, dtype: str, by_shape: dict, total: dict,
-                    **extra) -> list:
+                    per_round: float = None, **extra) -> list:
     """``hist_level`` on the rows x (R, L) (per-row scales ``s`` if
     quantized) with levels q (R, 1), at each of the four levels with the
     prefixes the plain level loop finds for them: counts equal to the plain
@@ -1689,7 +2025,9 @@ def hist_level_rows(x, s, q, dtype: str, by_shape: dict, total: dict,
     differ; then the whole multilevel quantile against the sorting plain
     version, thresholds bit-equal.  Each level is timed beside its
     launches (``by_shape``, counted by shape over the path's 2 rounds),
-    and ``total`` sums launches × time over a round."""
+    and ``total`` sums launches × time over a round: ``per_round``
+    launches of each level (x is one leaf's rows: 1), or by default
+    every launch of x's shape in a round (x stands for all of them)."""
     from repro_torch.kernels.fedfa_quantile import multilevel, ref
     R, L = x.shape
     sc = None if s is None else s[:, None].contiguous()
@@ -1723,7 +2061,8 @@ def hist_level_rows(x, s, q, dtype: str, by_shape: dict, total: dict,
                         2)
         n = by_shape.get((R, L, shift), 0)
         for key, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
-            total[key] += n / 2 * val       # 2 rounds
+            total[key] += (n / 2 if per_round is None   # 2 rounds
+                           else per_round) * val
         out.append({
             "name": "hist_level", "dtype": dtype, **extra, "shape": [R, L],
             "level": j, "route": "cuda",
@@ -1891,8 +2230,11 @@ def fl_path_kernel_rows(hist: dict, arch: str, dtype: str, kernels,
     for rows, q, s, *_ in calls["row_trimmed_stats_multilevel"]:
         rows, q = rows.cuda(), q.cuda()
         s = None if s is None else s.cuda()
+        # one leaf's rows: its 4 levels once a round, whichever other
+        # leaves share its shape
         out += hist_level_rows(rows, s, q[:, None], dtype,
-                               by_shape["hist_level"], total, **tag)
+                               by_shape["hist_level"], total, per_round=1,
+                               **tag)
         for k in kernels:
             k.reset()
         pt, pss = ops.row_trimmed_stats(rows, q, s, use_kernel=False)
@@ -1926,7 +2268,8 @@ def fl_path_kernel_rows(hist: dict, arch: str, dtype: str, kernels,
     return out + list(ssd_rows.values())
 
 
-def serve_card_vs_cpu(flash, hybrid: bool = False) -> None:
+def serve_card_vs_cpu(flash, hybrid: bool = False,
+                      audio: bool = False) -> None:
     """The serving Engine on the card and on the CPU at the reduced sizes,
     same weights and prompts, greedy, with an f32 and a bf16 cache: 4
     prompts of 48 tokens and 8 new for mamba2-130m and the 4-layer
@@ -1937,7 +2280,14 @@ def serve_card_vs_cpu(flash, hybrid: bool = False) -> None:
     wrap in prefill and again in decode: recurrentgemma-2b ``reduced()``
     (window 128, capacity 232: a ring of 128) with 2 prompts of 200 and 24
     new tokens, and tinyllama-1.1b ``reduced()`` at ``Engine(window=64)``,
-    capacity 128 (a ring of 64), 2 prompts of 100 and 24 new tokens."""
+    capacity 128 (a ring of 64), 2 prompts of 100 and 24 new tokens.  With
+    ``audio`` instead whisper-base with numpy frames: ``reduced()`` (2
+    layers, d_model 256, 64 frames), 4 prompts of 48 and 8 new tokens; then
+    at its published width cut to 2 decoder layers, 1 prompt of 2,816
+    against 1,500 frames and 4 new tokens, whose prefill takes the flash
+    route twice a layer on the card — causal self attention (2,816²) and
+    non-causal cross attention (2,816 × 1,500 > 2048²) —, 4 launches, and
+    ``attend_blocked`` on the CPU."""
     from repro_torch.configs import get_arch
     from repro_torch.data import synthetic
     from repro_torch.launch import serve, train
@@ -1955,11 +2305,17 @@ def serve_card_vs_cpu(flash, hybrid: bool = False) -> None:
         cases = [(RG, get_arch(RG).reduced(), 2, 200, 24, 232, None, 0),
                  ("tinyllama-1.1b", get_arch("tinyllama-1.1b").reduced(), 2,
                   100, 24, 128, 64, 0)]
+    if audio:
+        cases = [(WHISPER, get_arch(WHISPER).reduced(), 4, 48, 8, 64, None,
+                  0),
+                 (WHISPER, get_arch(WHISPER).replace(n_layers=2), 1, 2816, 4,
+                  2828, None, 4)]
     for (name, cfg, batch, prompt_len, max_new, capacity, window,
          flash_launches) in cases:
         params = init_params(cfg, torch.Generator().manual_seed(0))
         prompts = synthetic.lm_stream(cfg.vocab_size, batch, prompt_len,
                                       seed=0)
+        frames = numpy_frames(cfg, batch, seed=0)
         for cache in (torch.float32, torch.bfloat16):
             out = {}
             for dev in ("cuda", "cpu"):
@@ -1968,7 +2324,7 @@ def serve_card_vs_cpu(flash, hybrid: bool = False) -> None:
                                    cache_dtype=cache)
                 flash.reset()
                 out[dev] = eng.generate(prompts, max_new=max_new,
-                                        return_logits=True)
+                                        frames=frames, return_logits=True)
                 want_launches = flash_launches if dev == "cuda" else 0
                 check(flash.launches == want_launches,
                       f"{name} prompt {prompt_len} on {dev}: "
@@ -2395,6 +2751,7 @@ def main() -> int:
     print(json.dumps({"small_moe_prefill": small_moe_prefill_check()}),
           flush=True)
     print(json.dumps({"small_dense": small_dense_check()}), flush=True)
+    print(json.dumps({"small_audio": small_audio_check()}), flush=True)
     print(json.dumps({"small_tree": small_tree_check(kernels)}), flush=True)
     f32_path = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL]
     launches, shapes, quantile_calls = {}, {}, {}
@@ -2497,6 +2854,7 @@ def main() -> int:
     del g
     serve_card_vs_cpu(FLASH_ATTENTION)
     serve_card_vs_cpu(FLASH_ATTENTION, hybrid=True)
+    serve_card_vs_cpu(FLASH_ATTENTION, audio=True)
     for arch, shape, expect in (
             ("mamba2-130m", (8, 1024, 32),     # one SSD launch per layer
              {"ssd_intra_chunk": MAMBA2_130M.n_layers}),
@@ -2519,12 +2877,26 @@ def main() -> int:
     print(json.dumps({"hybrid_full_size": rg}), flush=True)
     rg_rows = flash_wide_rows(rg_inputs, rg_launches)
     del rg_inputs
+    # whisper-base at its published size: serving 8 x 4,096 against 1,500
+    # frames, 6 causal and 6 non-causal flash_attention launches, then the
+    # kernel's rows on the inputs that request passed it; then the
+    # aggregation kernels on an m = 8 cohort of its trees
+    audio, audio_inputs, audio_launches = audio_full_size(kernels, card)
+    print(json.dumps({"audio_full_size": audio}), flush=True)
+    audio_rows = flash_audio_rows(audio_inputs, audio_launches)
+    del audio_inputs
+    agg, agg_hist = audio_aggregation(kernels, card)
+    print(json.dumps({"audio_aggregation": agg}), flush=True)
+    audio_rows += fl_path_kernel_rows(
+        agg_hist, WHISPER, "f32", kernels,
+        path=f"{WHISPER} aggregation (m = 8, published size)")
+    del agg_hist
     print(json.dumps({"kernels": kernel_checks(launches, shapes,
                                                quantile_calls)
                       + hist_checks(launches, shapes) + fl_rows + ssd_checks(
         launches["mamba2-130m@1024"]["ssd_intra_chunk"]) + flash_checks(
         launches["smollm-135m@4096"]["flash_attention"]) + [phi_row]
-        + rg_rows}),
+        + rg_rows + audio_rows}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

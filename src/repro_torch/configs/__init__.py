@@ -1,7 +1,7 @@
-from repro_torch.configs.base import (ArchConfig, MoEConfig, RGLRUConfig,
-                                     SSMConfig)
+from repro_torch.configs.base import (ArchConfig, EncoderConfig, MoEConfig,
+                                     RGLRUConfig, SSMConfig)
 from repro_torch.configs.registry import (ARCHS, ARCTIC_480B, CODEQWEN_7B,
                                           FEDFA_PAPER_TRANSFORMER, MAMBA2_130M,
                                           MINICPM_2B, PHI35_MOE,
                                           RECURRENTGEMMA_2B, SMOLLM_135M,
-                                          TINYLLAMA_1B, get_arch)
+                                          TINYLLAMA_1B, WHISPER_BASE, get_arch)

@@ -1,6 +1,6 @@
 """Architecture configuration (own copy of ``repro.configs.base``: the
-dense, ssm, moe and hybrid families).  The field values, derived properties and
-``reduced()`` are held equal to the JAX package's by
+dense, ssm, moe, hybrid and audio families).  The field values, derived
+properties and ``reduced()`` are held equal to the JAX package's by
 ``tests/test_torch_static.py``."""
 from __future__ import annotations
 
@@ -49,9 +49,18 @@ class RGLRUConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack of the encoder-decoder (whisper).  The conv / mel
+    frontend is a stub: the encoder takes precomputed frame embeddings
+    (B, n_frames, d_model)."""
+    n_layers: int = 6
+    n_frames: int = 1500
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense, ssm, moe and hybrid are ported
+    family: str                      # dense, ssm, moe, hybrid, audio ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -62,11 +71,11 @@ class ArchConfig:
 
     d_head: int = 0                  # 0 -> d_model // n_heads
     max_seq_len: int = 524_288
-    rope_theta: float = 10_000.0
+    rope_theta: float = 10_000.0     # 0: learned positions (pos_embed)
     attn_window: Optional[int] = None
     layer_pattern: Tuple[str, ...] = ("attn",)
     act: str = "silu"
-    norm: str = "rmsnorm"
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     logit_softcap: Optional[float] = None
@@ -74,6 +83,7 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
+    encoder: Optional[EncoderConfig] = None
 
     # --- FedFA ---
     n_sections: int = 4              # contiguous groups of scan repeats
@@ -156,6 +166,9 @@ class ArchConfig:
         if self.ssm:
             kw["ssm"] = dataclasses.replace(self.ssm, d_state=32, head_dim=32,
                                             chunk=32)
+        if self.encoder:
+            kw["encoder"] = dataclasses.replace(self.encoder, n_layers=2,
+                                                n_frames=64)
         if self.attn_window:
             kw["attn_window"] = min(self.attn_window, 128)
         return self.replace(**kw)

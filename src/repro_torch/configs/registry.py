@@ -1,9 +1,10 @@
-"""Registry of the ported architectures (own copy of the dense, ssm, moe
-and hybrid entries of ``repro.configs.registry``, field for field)."""
+"""Registry of the ported architectures (own copy of the dense, ssm, moe,
+hybrid and audio entries of ``repro.configs.registry``, field for
+field)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import (ArchConfig, MoEConfig, RGLRUConfig,
-                                     SSMConfig)
+from repro_torch.configs.base import (ArchConfig, EncoderConfig, MoEConfig,
+                                     RGLRUConfig, SSMConfig)
 
 MINICPM_2B = ArchConfig(
     name="minicpm-2b", family="dense", citation="arXiv:2404.06395",
@@ -68,6 +69,17 @@ CODEQWEN_7B = ArchConfig(
     vocab_size=92_416, d_head=128, fsdp=True, grad_accum=4,
 )
 
+WHISPER_BASE = ArchConfig(
+    name="whisper-base", family="audio", citation="arXiv:2212.04356",
+    n_layers=6, d_model=512, n_heads=8, n_kv_heads=8, d_ff=2048,
+    vocab_size=51_865, d_head=64, norm="layernorm", act="gelu",
+    encoder=EncoderConfig(n_layers=6, n_frames=1500),
+    rope_theta=0.0,                  # learned positions
+    grad_accum=4,
+    max_seq_len=65_536,              # the learned position table's rows
+    long_context_mode="skip",
+)
+
 # The paper's own Transformer LM (Table 4 rightmost column, WikiText-2).
 # Its reduced() cut keeps 3 query heads and 2 kv heads, which neither
 # package can run (3 is not a multiple of 2); its published size runs.
@@ -80,7 +92,7 @@ FEDFA_PAPER_TRANSFORMER = ArchConfig(
 
 ARCHS = {a.name: a for a in (MINICPM_2B, SMOLLM_135M, ARCTIC_480B,
                              RECURRENTGEMMA_2B, MAMBA2_130M, TINYLLAMA_1B,
-                             PHI35_MOE, CODEQWEN_7B,
+                             PHI35_MOE, CODEQWEN_7B, WHISPER_BASE,
                              FEDFA_PAPER_TRANSFORMER)}
 
 

@@ -54,9 +54,13 @@ def extract_client_model(global_params: Params, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 def _path_stage_info(path) -> Tuple[bool, Optional[int]]:
-    """(is_depth_stacked, stage index) of a parameter path."""
+    """(is_depth_stacked, stage index) of a parameter path: the encoder's
+    blocks are depth-stacked with stage None (a segment per row, never
+    grafted or gated)."""
     if path[0] == "stages":
         return True, path[1]
+    if path[0] == "encoder" and path[1] == "blocks":
+        return True, None
     return False, None
 
 

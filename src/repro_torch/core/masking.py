@@ -33,7 +33,9 @@ def _rep(mask: Optional[torch.Tensor], k: int) -> Optional[torch.Tensor]:
 
 
 def _norm_ax(cfg: ArchConfig, dm) -> Dict[str, AX]:
-    return {"scale": AX(dm)}         # RMSNorm (check_ported refuses others)
+    if cfg.norm == "layernorm":
+        return {"scale": AX(dm), "bias": AX(dm)}
+    return {"scale": AX(dm)}
 
 
 def _attn_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, AX]:
@@ -44,6 +46,9 @@ def _attn_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, AX]:
 
 
 def _ffn_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, AX]:
+    if cfg.norm == "layernorm":            # whisper's MLP, with biases
+        return {"w_in": AX(m.d_model, m.d_ff), "b_in": AX(m.d_ff),
+                "w_out": AX(m.d_ff, m.d_model), "b_out": AX(m.d_model)}
     return {"w_gate": AX(m.d_model, m.d_ff), "w_up": AX(m.d_model, m.d_ff),
             "w_down": AX(m.d_ff, m.d_model)}
 
@@ -104,26 +109,37 @@ def _rglru_ax(cfg: ArchConfig, m: WidthMasks) -> Dict[str, AX]:
             "b_i": AX(dr), "lam": AX(dr), "out": AX(dr, m.d_model)}
 
 
-def _block_ax(kind: str, cfg: ArchConfig, m: WidthMasks) -> Dict[str, Any]:
+def _block_ax(kind: str, cfg: ArchConfig, m: WidthMasks,
+              cross: bool = False) -> Dict[str, Any]:
     if kind == "ssd":
         return {"ln": _norm_ax(cfg, m.d_model), "ssd": _ssd_ax(cfg, m)}
     if kind == "rglru":
         return {"ln1": _norm_ax(cfg, m.d_model), "rg": _rglru_ax(cfg, m),
                 "ln2": _norm_ax(cfg, m.d_model), "ffn": _ffn_ax(cfg, m)}
-    return {"ln1": _norm_ax(cfg, m.d_model), "attn": _attn_ax(cfg, m),
-            "ln2": _norm_ax(cfg, m.d_model),
-            "ffn": _moe_ax(cfg, m) if cfg.moe else _ffn_ax(cfg, m)}
+    p = {"ln1": _norm_ax(cfg, m.d_model), "attn": _attn_ax(cfg, m),
+         "ln2": _norm_ax(cfg, m.d_model),
+         "ffn": _moe_ax(cfg, m) if cfg.moe else _ffn_ax(cfg, m)}
+    if cross:
+        p["lnx"], p["xattn"] = _norm_ax(cfg, m.d_model), _attn_ax(cfg, m)
+    return p
 
 
 def axis_mask_tree(cfg: ArchConfig, m: WidthMasks) -> Params:
     """Tree matching the params structure; leaves are AX objects."""
     check_ported(cfg)
+    cross = cfg.encoder is not None
     t: Params = {"embed": AX(None, m.d_model),
-                 "stages": tuple(tuple(_block_ax(k, cfg, m) for k in unit)
+                 "stages": tuple(tuple(_block_ax(k, cfg, m, cross)
+                                       for k in unit)
                                  for unit, _ in cfg.stages()),
                  "final_norm": _norm_ax(cfg, m.d_model)}
     if not cfg.tie_embeddings:
         t["lm_head"] = AX(m.d_model, None)
+    if cfg.rope_theta <= 0.0:
+        t["pos_embed"] = AX(None, m.d_model)
+    if cross:
+        t["encoder"] = {"blocks": _block_ax("attn", cfg, m),
+                        "final_norm": _norm_ax(cfg, m.d_model)}
     return t
 
 

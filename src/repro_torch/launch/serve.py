@@ -1,5 +1,7 @@
 """Batched serving: prefill, then greedy or temperature decode over a KV
-cache (a ring under a sliding window) or a recurrent state.
+cache (a ring under a sliding window) or a recurrent state; an
+encoder-decoder (whisper) takes frames, encodes them once in prefill and
+attends to that output in every decode step.
 
     python -m repro_torch.launch.serve [--arch smollm-135m|mamba2-130m|...]
         [--batch 8] [--prompt-len 32] [--max-new 32] [--full-size]
@@ -8,7 +10,9 @@ cache (a ring under a sliding window) or a recurrent state.
 Runs on ``cuda`` unless ``--device`` says otherwise.  The model is cut to
 ``reduced()`` size, as the JAX CLI cuts it, unless ``--full-size``, and to
 ``--n-layers`` layers where that is given; its weights are drawn from seed
-0 and it decodes greedily.  Prints one JSON line: the timings, tokens/s and
+0 and it decodes greedily.  An encoder-decoder's frames (batch,
+n_frames, d_model) are drawn at scale 0.02 from a numpy generator of seed
+0.  Prints one JSON line: the timings, tokens/s and
 peak device memory, and the first two sequences.
 """
 from __future__ import annotations
@@ -29,7 +33,10 @@ from repro_torch.models import model as model_mod
 class Engine:
     """Minimal batched inference engine around prefill / decode_step.
     ``window`` (else the config's ``attn_window``) slides the attention
-    window; its KV caches are then rings of min(capacity, window)."""
+    window; its KV caches are then rings of min(capacity, window).  A
+    request whose positions outgrow a learned ``pos_embed`` table is
+    refused (the reference would reuse the table's last row: ROADMAP
+    queue 3 item 26)."""
 
     def __init__(self, cfg, params, *, window: Optional[int] = None,
                  capacity: int = 512, cache_dtype=torch.bfloat16):
@@ -40,12 +47,16 @@ class Engine:
         self.timing = {}
 
     @torch.no_grad()
-    def generate(self, tokens, *, max_new: int = 32, temperature: float = 0.0,
-                 seed: int = 0, return_logits: bool = False):
+    def generate(self, tokens, *, max_new: int = 32, frames=None,
+                 temperature: float = 0.0, seed: int = 0,
+                 return_logits: bool = False):
         """tokens (B, S) -> (B, max_new) int32 numpy: greedy when
         ``temperature`` is 0, else sampled with a generator seeded by
-        ``seed``.  With ``return_logits`` also the (B, max_new, V) f32
-        logits each token was picked from.  ``self.timing`` holds the
+        ``seed``.  ``frames`` (B, T, D): an encoder-decoder's input,
+        encoded once in prefill; every decode step recomputes its cross
+        attention's k and v from that output, as the reference does.  With
+        ``return_logits`` also the (B, max_new, V) f32 logits each token was
+        picked from.  ``self.timing`` holds the
         prefill's and the decode steps' seconds, each ended by a device
         synchronisation."""
         dev = self.params["embed"].device
@@ -62,20 +73,30 @@ class Engine:
                              f"exceed the KV cache's {self.capacity}"
                              + (f", a ring shorter than the window {win}"
                                 if win else ""))
+        if "pos_embed" in self.params and S + max_new - 1 > \
+                self.params["pos_embed"].shape[0]:
+            raise ValueError(f"prompt {S} + {max_new - 1} decoded tokens "
+                             f"outgrow the pos_embed table's "
+                             f"{self.params['pos_embed'].shape[0]} positions")
+        batch = {"tokens": tok}
+        if frames is not None:
+            batch["frames"] = torch.as_tensor(np.asarray(frames),
+                                              device=dev)
         gen = (torch.Generator(device=dev).manual_seed(seed)
                if temperature > 0.0 else None)
         sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: 0)
         sync()
         t0 = time.perf_counter()
-        logits, caches = model_mod.prefill(
-            self.params, self.cfg, {"tokens": tok}, capacity=self.capacity,
+        logits, caches, enc_out = model_mod.prefill(
+            self.params, self.cfg, batch, capacity=self.capacity,
             window=self.window, cache_dtype=self.cache_dtype)
         seen = [logits[:, -1]]
         outs = [self._pick(logits[:, -1], temperature, gen)]
         sync()
         t1 = time.perf_counter()
         for _ in range(max_new - 1):
-            logits, caches = self._decode(self.params, caches, outs[-1])
+            logits, caches = self._decode(self.params, caches, outs[-1],
+                                          enc_out)
             seen.append(logits[:, -1])
             outs.append(self._pick(logits[:, -1], temperature, gen))
         sync()
@@ -118,9 +139,9 @@ def build(arch: str, *, full_size: bool = False,
 def serve(arch: str = "smollm-135m", batch: int = 8, prompt_len: int = 32,
           max_new: int = 32, *, full_size: bool = False,
           n_layers: Optional[int] = None, device=None) -> dict:
-    """The CLI's run: a model from ``build``, ``batch`` synthetic prompts,
-    one greedy ``generate``.  Returns the tokens, the timings and, on a
-    card, its peak memory."""
+    """The CLI's run: a model from ``build``, ``batch`` synthetic prompts
+    (and an encoder-decoder's frames), one greedy ``generate``.  Returns
+    the tokens, the timings and, on a card, its peak memory."""
     from repro_torch.data import synthetic
 
     dev = resolve_device(device)
@@ -129,9 +150,13 @@ def serve(arch: str = "smollm-135m", batch: int = 8, prompt_len: int = 32,
     eng = Engine(cfg, params, capacity=prompt_len + max_new + 8,
                  window=cfg.attn_window)
     prompts = synthetic.lm_stream(cfg.vocab_size, batch, prompt_len, seed=0)
+    frames = None
+    if cfg.encoder is not None:
+        frames = 0.02 * np.random.default_rng(0).standard_normal(
+            (batch, cfg.encoder.n_frames, cfg.d_model), dtype=np.float32)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    tokens = eng.generate(prompts, max_new=max_new)
+    tokens = eng.generate(prompts, max_new=max_new, frames=frames)
     t = eng.timing
     out = {"arch": arch, "full_size": full_size, "n_layers": cfg.n_layers,
            "device": str(dev),
@@ -141,7 +166,8 @@ def serve(arch: str = "smollm-135m", batch: int = 8, prompt_len: int = 32,
                                    / max(t["decode_steps"], 1)),
            "tokens_per_s": batch * max_new / (t["prefill_s"]
                                               + t["decode_s"]),
-           "tokens": tokens, "engine": eng, "prompts": prompts}
+           "tokens": tokens, "engine": eng, "prompts": prompts,
+           "frames": frames}
     if dev.type == "cuda":
         out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     return out
@@ -164,7 +190,8 @@ def main(argv=None) -> dict:
                 full_size=args.full_size, n_layers=args.n_layers,
                 device=args.device)
     print(json.dumps({**{k: v for k, v in out.items()
-                         if k not in ("tokens", "engine", "prompts")},
+                         if k not in ("tokens", "engine", "prompts",
+                                      "frames")},
                       "first": out["tokens"][:2].tolist()}), flush=True)
     return out
 

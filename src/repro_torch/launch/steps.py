@@ -23,8 +23,9 @@ Params = Dict[str, Any]
 
 def make_train_step(cfg: ArchConfig, total_steps: int = 1000):
     """train_step(params, opt_state, batch, step) -> (params, opt_state,
-    loss): one optimizer step on ``batch`` ({'tokens': (B, S)}) at the
-    schedule's rate for ``step``."""
+    loss): one optimizer step on ``batch`` ({'tokens': (B, S)}, and
+    'frames' (B, T, D) with an encoder; every entry split into the
+    microbatches alike) at the schedule's rate for ``step``."""
     sched = make_schedule(cfg.schedule, cfg.learning_rate, total_steps,
                           warmup=max(total_steps // 100, 1))
 
@@ -87,12 +88,16 @@ def make_train_step(cfg: ArchConfig, total_steps: int = 1000):
 
 def make_prefill_step(cfg: ArchConfig, *, window: Optional[int] = None,
                       masks=None):
-    """prefill_step(params, batch) -> (last-position logits, caches)."""
+    """prefill_step(params, batch) -> (last-position logits, caches), and
+    ``enc_out`` third with an encoder, as the reference's step returns."""
     def prefill_step(params, batch):
-        return model_mod.prefill(params, cfg, batch, window=window,
-                                 masks=masks,
-                                 capacity=_prefill_capacity(cfg, batch),
-                                 chunk_size=cfg.prefill_chunk)
+        logits, caches, enc_out = model_mod.prefill(
+            params, cfg, batch, window=window, masks=masks,
+            capacity=_prefill_capacity(cfg, batch),
+            chunk_size=cfg.prefill_chunk)
+        if cfg.encoder is not None:
+            return logits, caches, enc_out
+        return logits, caches
     return prefill_step
 
 
@@ -104,7 +109,10 @@ def _prefill_capacity(cfg: ArchConfig, batch) -> int:
 
 def make_decode_step(cfg: ArchConfig, *, window: Optional[int] = None,
                      masks=None):
-    def decode_step(params, caches, token):
+    """decode_step(params, caches, token, enc_out=None) -> (logits,
+    caches)."""
+    def decode_step(params, caches, token, enc_out=None):
         return model_mod.decode_step(params, cfg, token, caches,
-                                     window=window, masks=masks)
+                                     window=window, masks=masks,
+                                     enc_out=enc_out)
     return decode_step

@@ -46,9 +46,10 @@ def run_dense(arch: str, steps: int, batch: int, seq_len: int,
               device=None, params=None) -> dict:
     """Plain pretraining of ``arch`` for ``steps`` steps of ``batch``
     sequences of ``seq_len`` tokens (one microbatch a step, as the
-    reference).  ``params``: the initial weights (for instance the
-    reference's, through ``params_from_numpy``); drawn from ``seed`` on the
-    CPU if None."""
+    reference); an encoder-decoder's frames (batch, n_frames, d_model) are
+    drawn each step at scale 0.02 from a CPU generator seeded by ``seed``.
+    ``params``: the initial weights (for instance the reference's, through
+    ``params_from_numpy``); drawn from ``seed`` on the CPU if None."""
     from repro_torch.configs import get_arch
     from repro_torch.data import synthetic
     from repro_torch.launch.steps import make_train_step
@@ -67,12 +68,17 @@ def run_dense(arch: str, steps: int, batch: int, seq_len: int,
     step_fn = make_train_step(cfg, total_steps=steps)
     data = synthetic.lm_stream(cfg.vocab_size, steps * batch, seq_len,
                                seed=seed)
+    frame_gen = torch.Generator().manual_seed(seed)
     losses = []
     t0 = time.time()
     for s in range(steps):
-        tok = torch.as_tensor(data[s * batch:(s + 1) * batch],
-                              dtype=torch.int64, device=dev)
-        params, opt, loss = step_fn(params, opt, {"tokens": tok}, s)
+        batch_d = {"tokens": torch.as_tensor(data[s * batch:(s + 1) * batch],
+                                             dtype=torch.int64, device=dev)}
+        if cfg.encoder is not None:
+            batch_d["frames"] = (0.02 * torch.randn(
+                (batch, cfg.encoder.n_frames, cfg.d_model),
+                generator=frame_gen)).to(dev)
+        params, opt, loss = step_fn(params, opt, batch_d, s)
         losses.append(float(loss))
         if s % log_every == 0:
             print(f"step {s:4d}  loss {losses[-1]:.4f}  "
@@ -136,6 +142,11 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
         raise ValueError(f"unknown driver {driver!r}")
     dev = resolve_device(device)
     cfg = fl_config(arch, task, n_classes, full_size)
+    if cfg.encoder is not None:
+        # the reference's rounds build no frames and fail with KeyError:
+        # 'frames' (ROADMAP queue 3 item 25)
+        raise ValueError(f"{arch}: FL batches carry no 'frames' for its "
+                         "encoder (the reference fails there too)")
     rng = np.random.default_rng(seed)
     if params is None:
         # drawn on the CPU, so a seed gives the same weights on every device

@@ -1,5 +1,6 @@
-"""Primitive layers: width-aware RMSNorm, rotary embeddings, init, the
-logit softcap, and the JAX type-promotion rule for mixed-dtype products.
+"""Primitive layers: width-aware RMSNorm and LayerNorm, rotary and
+sinusoidal positions, init, the logit softcap, and the JAX type-promotion
+rule for mixed-dtype products.
 
 A client whose width mask zeroes a suffix of channels must compute exactly
 what the corresponding small dense model computes, so norms divide by the
@@ -35,10 +36,37 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, mask: Optional[torch.Tensor],
     return y * mask if mask is not None else y
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               mask: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim in f32, counting only active channels:
+    the mean over them, and the variance of the centred values masked
+    again, so that masked channels add nothing to it."""
+    xf = x.to(torch.float32)
+    if mask is not None:
+        xf = xf * mask
+        n = torch.clamp_min(torch.sum(mask), 1.0)
+    else:
+        n = x.shape[-1]
+    mean = torch.sum(xf, dim=-1, keepdim=True) / n
+    cent = (xf - mean) * mask if mask is not None else xf - mean
+    var = torch.sum(cent ** 2, dim=-1, keepdim=True) / n
+    y = (cent * torch.rsqrt(var + eps)).to(x.dtype)
+    y = y * scale.to(x.dtype) + bias.to(x.dtype)
+    return y * mask if mask is not None else y
+
+
 def apply_norm(kind: str, x, p, mask, eps):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not yet ported")
-    return rms_norm(x, p["scale"], mask, eps)
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"], mask, eps)
+    return layer_norm(x, p["scale"], p["bias"], mask, eps)
+
+
+def norm_shapes(kind: str, d: int) -> dict:
+    """A norm's leaves: RMSNorm a scale (initialised to zeros: it enters as
+    ``1 + scale``), LayerNorm a scale (ones) and a bias (zeros)."""
+    if kind == "rmsnorm":
+        return {"scale": (d,)}
+    return {"scale": (d,), "bias": (d,)}
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -54,6 +82,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int) -> torch.Tensor:
+    """(n, d) f32 table: sin then cos of pos / 10000^(2i/d), i < d/2."""
+    pos = torch.arange(n, dtype=torch.float32)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32)[None, :]
+    angle = pos / torch.pow(torch.tensor(10_000.0), 2 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 def dense_init(shape, dtype, generator: torch.Generator,

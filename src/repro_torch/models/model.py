@@ -1,7 +1,8 @@
 """Top-level model API: train forward, losses, serving (prefill and
 decode over KV caches, ring caches under a sliding window, and SSM and
-RG-LRU states) and the loader that carries the JAX package's parameters
-across.
+RG-LRU states), the encoder of the encoder-decoder (whisper: frames in,
+``enc_out`` to every decoder block's cross attention) and the loader that
+carries the JAX package's parameters across.
 
 Entry points take width masks and depth gates; the global model is the
 runtime with all-ones masks.
@@ -28,10 +29,46 @@ Params = Dict[str, Any]
 
 
 def _embed(params: Params, tokens: torch.Tensor, m: WidthMasks) -> torch.Tensor:
+    """Token embeddings, plus the learned positions 0.. where the model has
+    a ``pos_embed`` table (a prompt longer than the table raises; the
+    reference fails at trace), masked to the active d_model."""
     x = params["embed"][tokens]
+    if "pos_embed" in params:
+        S, rows = tokens.shape[1], params["pos_embed"].shape[0]
+        if S > rows:
+            raise ValueError(f"{S} positions outgrow the pos_embed table's "
+                             f"{rows} rows")
+        x = x + params["pos_embed"][None, :S]
     if m.d_model is not None:
         x = x * m.d_model.to(x.dtype)
     return x
+
+
+def _encoder_apply(params: Params, cfg: ArchConfig, frames: torch.Tensor,
+                   m: WidthMasks) -> torch.Tensor:
+    """The encoder over precomputed frame embeddings (B, T, D) (the
+    reference's stub frontend): frames + pos_embed[:T], masked to the
+    active d_model, its non-causal stage at full depth, its final norm."""
+    enc = params["encoder"]
+    T = frames.shape[1]
+    x = frames + params["pos_embed"][None, :T]
+    if m.d_model is not None:
+        x = x * m.d_model.to(x.dtype)
+    x, _, _ = stage_apply(
+        (enc["blocks"],), ("attn",), x, cfg, m,
+        gates=torch.ones((cfg.encoder.n_layers,), dtype=torch.float32,
+                         device=x.device),
+        positions=torch.arange(T, device=x.device)[None], window=None,
+        causal=False)
+    return apply_norm(cfg.norm, x, enc["final_norm"], m.d_model, cfg.norm_eps)
+
+
+def _enc_out(params: Params, cfg: ArchConfig, batch, m: WidthMasks):
+    """The encoder's output on ``batch['frames']``, or None without an
+    encoder."""
+    if cfg.encoder is None:
+        return None
+    return _encoder_apply(params, cfg, batch["frames"], m)
 
 
 def _head(params: Params, cfg: ArchConfig, x: torch.Tensor, m: WidthMasks):
@@ -49,20 +86,22 @@ def _head(params: Params, cfg: ArchConfig, x: torch.Tensor, m: WidthMasks):
 def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             masks: Optional[WidthMasks] = None,
             gates: Optional[torch.Tensor] = None):
-    """Training / evaluation forward: batch {'tokens': (B, S)} -> (logits
-    (B, S, V), aux losses {'lb_loss', 'z_loss'}: the MoE blocks' sums, 0
-    without them).  ``gates`` flex stage 0's depth; later stages stay
+    """Training / evaluation forward: batch {'tokens': (B, S)[, 'frames':
+    (B, T, D) with an encoder]} -> (logits (B, S, V), aux losses
+    {'lb_loss', 'z_loss'}: the MoE blocks' sums, 0 without them).
+    ``gates`` flex stage 0's depth; later stages and the encoder stay
     full."""
     device = params["embed"].device
     m = masks or full_masks(cfg).to(device)
     x = _embed(params, batch["tokens"], m)
+    enc_out = _enc_out(params, cfg, batch, m)
     positions = torch.arange(x.shape[1], device=device)[None]
     aux_tot = {name: torch.zeros((), dtype=torch.float32, device=device)
                for name in AUX_LOSSES}
     for i, g in enumerate(_stage_gates(cfg, gates, device)):
         x, _, aux = stage_apply(params["stages"][i], cfg.stages()[i][0], x,
                                 cfg, m, gates=g, positions=positions,
-                                window=cfg.attn_window)
+                                window=cfg.attn_window, enc_out=enc_out)
         aux_tot = {k: v + aux[k] for k, v in aux_tot.items()}
     return _head(params, cfg, x, m), aux_tot
 
@@ -166,7 +205,9 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             *, masks=None, gates=None, capacity: Optional[int] = None,
             window: Optional[int] = None, cache_dtype=torch.bfloat16,
             chunk_size: Optional[int] = None):
-    """Process the prompt; returns (last-position logits (B, 1, V), caches).
+    """Process the prompt; returns (last-position logits (B, 1, V), caches,
+    enc_out): the encoder's output on ``batch['frames']`` with an encoder
+    (every decode step takes it), else None.
     The caches hold ``capacity`` positions (the prompt's length if None),
     or under a sliding window (``window``, else ``cfg.attn_window``) a ring
     of min(capacity, window), stored in ``cache_dtype`` (SSM and RG-LRU
@@ -177,19 +218,20 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     against the whole cache, its MoE dispatch over the chunk's tokens
     alone).  As in the reference, the prompt goes in one shot instead with
     a window, when the chunk does not divide it, or when it is no longer
-    than one chunk.  An SSD block starts every chunk from a zero state, as
-    the reference's does (ROADMAP queue 3 item 21)."""
+    than one chunk, or with an encoder.  An SSD block starts every chunk
+    from a zero state, as the reference's does (ROADMAP queue 3 item 21)."""
     device = params["embed"].device
     m = masks or full_masks(cfg).to(device)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(params, tokens, m)
+    enc_out = _enc_out(params, cfg, batch, m)
     caches = init_caches(params, cfg, B, capacity or S, window=window,
                          dtype=cache_dtype)
     win = window if window is not None else cfg.attn_window
     gs = _stage_gates(cfg, gates, device)
-    if chunk_size is None or win is not None or S % chunk_size \
-            or S <= chunk_size:
+    if chunk_size is None or win is not None or enc_out is not None \
+            or S % chunk_size or S <= chunk_size:
         chunk_size, starts = S, [None]
     else:
         starts = range(0, S, chunk_size)
@@ -199,27 +241,36 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         for i, g in enumerate(gs):
             x_c, _, _ = stage_apply(params["stages"][i], cfg.stages()[i][0],
                                     x_c, cfg, m, gates=g, positions=positions,
-                                    window=win, caches=caches[i],
-                                    chunk_offset=off)
-    return _head(params, cfg, x_c[:, -1:], m), caches
+                                    window=win, enc_out=enc_out,
+                                    caches=caches[i], chunk_offset=off)
+    return _head(params, cfg, x_c[:, -1:], m), caches, enc_out
 
 
 def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor, caches,
                 *, masks=None, gates=None, pos: Optional[torch.Tensor] = None,
-                window: Optional[int] = None):
-    """One autoregressive step. token: (B, 1). Returns (logits (B, 1, V),
-    caches); the caches are updated in place."""
+                window: Optional[int] = None, enc_out=None):
+    """One autoregressive step. token: (B, 1); ``enc_out`` (prefill's) with
+    an encoder. Returns (logits (B, 1, V), caches); the caches are updated
+    in place.  A learned position is re-added as the reference does,
+    x - pos_embed[0] + pos_embed[pos] (in that order, so that f32 bits can
+    match), with pos clamped to the table's last row as its
+    ``dynamic_slice`` clamps it (ROADMAP queue 3 item 26)."""
     device = params["embed"].device
     m = masks or full_masks(cfg).to(device)
     if pos is None:
         pos = _cache_pos(caches)
     x = _embed(params, token, m)
+    if "pos_embed" in params:
+        pe = params["pos_embed"]
+        row = torch.clamp(pos, 0, pe.shape[0] - 1).reshape(1)
+        x = x - pe[None, 0:1] + pe.index_select(0, row)[None]
     positions = pos.reshape(1, 1).expand(token.shape[0], 1)
     win = window if window is not None else cfg.attn_window
     for i, g in enumerate(_stage_gates(cfg, gates, device)):
         x, _, _ = stage_apply(params["stages"][i], cfg.stages()[i][0], x,
                               cfg, m, gates=g, positions=positions,
-                              window=win, caches=caches[i], decode=True)
+                              window=win, enc_out=enc_out, caches=caches[i],
+                              decode=True)
     return _head(params, cfg, x, m), caches
 
 

@@ -291,8 +291,8 @@ def test_prefill_step_matches_reference():
     with torch.no_grad():
         logits, caches = steps.make_prefill_step(cfg)(
             p, {"tokens": torch.from_numpy(tok).long()})
-        direct, _ = model.prefill(p, cfg, {"tokens": torch.from_numpy(tok)
-                                           .long()}, capacity=12)
+        direct, _, _ = model.prefill(
+            p, cfg, {"tokens": torch.from_numpy(tok).long()}, capacity=12)
     assert torch.equal(logits, direct)
     assert steps._prefill_capacity(cfg, {"tokens": tok}) == 12
     jlogits, jcaches = jsteps.make_prefill_step(jcfg)(

@@ -292,7 +292,7 @@ def test_prefill_long_prompt_matches_reference():
     jlg, jc, _ = jmodel.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)},
                                 capacity=2060, cache_dtype=jnp.float32)
     with torch.no_grad():
-        lg, c = model.prefill(params, cfg, {"tokens": torch.from_numpy(
+        lg, c, _ = model.prefill(params, cfg, {"tokens": torch.from_numpy(
             toks).long()}, capacity=2060, cache_dtype=torch.float32)
     np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL)
     kc, vc, pos = _cache_leaves(c)

@@ -373,7 +373,7 @@ def test_windowed_serving_matches_reference(arch, cache):
     jdec = jax.jit(lambda p, t, c: jmodel.decode_step(p, jcfg, t, c,
                                                       window=window))
     with torch.no_grad():
-        lg, c = model.prefill(params, cfg, {"tokens": torch.as_tensor(
+        lg, c, _ = model.prefill(params, cfg, {"tokens": torch.as_tensor(
             toks[:, :P])}, capacity=cap, window=window, cache_dtype=dt)
         got, want = [lg], [np.asarray(jlg)]
         for i in range(P, P + n):

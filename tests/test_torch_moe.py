@@ -423,10 +423,10 @@ def _prefill_both(stack, cache, toks, chunk, *, slow=False, cf=None):
             cache_dtype=jdt, chunk_size=chunk)[0])
     want = np.asarray(_JPREFILL[key](jp, jnp.asarray(toks)))
     with torch.no_grad():
-        got, _ = model.prefill(_port_params(jp, cfg), cfg,
-                               {"tokens": torch.from_numpy(toks).long()},
-                               capacity=toks.shape[1] + 8, cache_dtype=dt,
-                               chunk_size=chunk)
+        got, _, _ = model.prefill(_port_params(jp, cfg), cfg,
+                                  {"tokens": torch.from_numpy(toks).long()},
+                                  capacity=toks.shape[1] + 8, cache_dtype=dt,
+                                  chunk_size=chunk)
     return got.numpy(), want, cfg
 
 
@@ -490,13 +490,13 @@ def test_prefill_rule_for_not_chunking():
     params = _port_params()
     toks = {"tokens": torch.from_numpy(_tokens(64, S=12)).long()}
     with torch.no_grad():
-        one, _ = model.prefill(params, CFG, toks, capacity=20)
+        one, _, _ = model.prefill(params, CFG, toks, capacity=20)
         for chunk in (5, 12, 16):
-            got, _ = model.prefill(params, CFG, toks, capacity=20,
-                                   chunk_size=chunk)
+            got, _, _ = model.prefill(params, CFG, toks, capacity=20,
+                                      chunk_size=chunk)
             assert torch.equal(got, one), chunk
-        got, caches = model.prefill(params, CFG, toks, capacity=20,
-                                    chunk_size=4)
+        got, caches, _ = model.prefill(params, CFG, toks, capacity=20,
+                                       chunk_size=4)
     assert int(model._cache_pos(caches)) == 12
     assert not torch.equal(got, one)     # three chunks, dispatched apart
 

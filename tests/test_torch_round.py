@@ -126,16 +126,18 @@ def test_cli_runs_on_cpu(driver, tmp_path):
 
 
 # flags the port refuses on the CPU, with what it raises: the mesh flags
-# and the families not yet ported, the kernels asked for without a card,
-# and the paper transformer's cut (3 query heads over 2 kv heads)
+# and the family not yet ported, the kernels asked for without a card,
+# the paper transformer's cut (3 query heads over 2 kv heads), and FL of
+# whisper-base, whose batches carry no frames (ROADMAP queue 3 item 25)
 _REFUSED = [
     (["--mesh", "host"], NotImplementedError, "not yet ported"),
     (["--mesh", "production"], NotImplementedError, "not yet ported"),
     (["--mesh-shape", "2x2"], NotImplementedError, "not yet ported"),
-    (["--arch", "whisper-base"], NotImplementedError, "not yet ported"),
+    (["--arch", "internvl2-76b"], NotImplementedError, "not yet ported"),
     (["--use-kernel", "on"], RuntimeError, "use_kernel=True"),
     (["--mode", "dense", "--arch", "fedfa-paper-transformer"], ValueError,
-     "n_kv_heads 2")]
+     "n_kv_heads 2"),
+    (["--arch", "whisper-base"], ValueError, "frames")]
 
 
 @pytest.mark.parametrize("flag", [f for f, _, _ in _REFUSED])

@@ -136,8 +136,8 @@ def test_prefill_and_decode_match_reference(arch, cache_dtype):
     jlg, jc, _ = jmodel.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :P])},
                                 capacity=48, cache_dtype=jdt)
     with torch.no_grad():
-        lg, c = model.prefill(params, cfg, {"tokens": _tt(toks[:, :P])},
-                              capacity=48, cache_dtype=dt)
+        lg, c, _ = model.prefill(params, cfg, {"tokens": _tt(toks[:, :P])},
+                                 capacity=48, cache_dtype=dt)
         np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL)
         _close_caches(c, jc, bf16)
         for i in range(P, toks.shape[1]):
@@ -273,11 +273,12 @@ def test_unported_serving_options_raise():
     jlg, jc, _ = jmodel.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)},
                                 capacity=16, window=4, cache_dtype=jnp.float32)
     with torch.no_grad():
-        lg, c = model.prefill(params, cfg, {"tokens": _tt(toks)}, capacity=16,
-                              window=4, cache_dtype=torch.float32)
-        lg_c, c_c = model.prefill(params, cfg, {"tokens": _tt(toks)},
-                                  capacity=16, window=4, chunk_size=4,
-                                  cache_dtype=torch.float32)
+        lg, c, _ = model.prefill(params, cfg, {"tokens": _tt(toks)},
+                                 capacity=16, window=4,
+                                 cache_dtype=torch.float32)
+        lg_c, c_c, _ = model.prefill(params, cfg, {"tokens": _tt(toks)},
+                                     capacity=16, window=4, chunk_size=4,
+                                     cache_dtype=torch.float32)
     np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL)
     # stacked over the repeats: (R, B, capacity, K, hd)
     assert c[0][0]["self"].k.shape[2] == 4 and int(model._cache_pos(c)) == 12

@@ -45,10 +45,11 @@ def _np(x):
     return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
 
 
-# the dense, moe and hybrid registry entries copied besides smollm-135m
+# the dense, moe, hybrid and audio registry entries copied besides
+# smollm-135m
 _DENSE_COPIES = ("minicpm-2b", "tinyllama-1.1b", "codeqwen1.5-7b",
                  "fedfa-paper-transformer", "phi3.5-moe-42b-a6.6b",
-                 "arctic-480b", "recurrentgemma-2b")
+                 "arctic-480b", "recurrentgemma-2b", "whisper-base")
 
 
 def _rglru_equal(a: RGLRUConfig, b, d_model: int) -> None:
@@ -72,6 +73,10 @@ def _cfg_fields_equal(port: ArchConfig, ref) -> None:
             assert dataclasses.asdict(a) == dataclasses.asdict(b)
         elif f.name == "rglru" and a is not None:
             _rglru_equal(a, b, port.d_model)
+        elif f.name == "encoder" and a is not None:  # own EncoderConfig
+            assert [x.name for x in dataclasses.fields(a)] == \
+                [x.name for x in dataclasses.fields(b)]
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
         else:
             assert a == b, f.name
     assert port.padded_vocab == ref.padded_vocab
@@ -111,9 +116,9 @@ def test_unported_arch_raises():
     assert get_arch("smollm-135m") is SMOLLM_135M
     assert get_arch("mamba2-130m") is MAMBA2_130M
     assert get_arch("recurrentgemma-2b").family == "hybrid"
-    for arch in ("whisper-base", "internvl2-76b"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_arch(arch)
+    assert get_arch("whisper-base").family == "audio"
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_arch("internvl2-76b")
 
 
 def test_population_copy_matches_reference():
