@@ -35,8 +35,9 @@
    held at rtol 1e-3 / atol 1e-4 wherever the CPU's gradient lies above
    the noise (1e-5 of its leaf's largest), and the free-running weights
    above the first step's noise within 1e-3 of the update in relative
-   L2.  whisper-base's ``forward`` and ``loss_fn`` at ``reduced()`` at
-   widths 1 and 0.5 (rtol 1e-3 / atol 1e-4).  A
+   L2.  whisper-base's and internvl2-76b's ``forward`` and ``loss_fn`` at
+   ``reduced()`` at widths 1 and 0.5 (rtol 1e-3 / atol 1e-4; internvl2's
+   numpy patches also in its dense steps).  A
    per-round ``--agg-engine tree`` round on the card against the CPU's
    (rtol 1e-3 / atol 1e-4) and against the card's flat round (rtol 1e-4
    / atol 1e-5), and a ``use_kernel=False`` round on the card: the kernel
@@ -105,7 +106,11 @@
    against 1,500 frames and 4 new tokens: on the card its prefill takes
    ``flash_attention`` 4 times (a layer's causal self attention, 2,816²,
    and non-causal cross attention, 2,816 × 1,500 > 2048²), on the CPU
-   ``attend_blocked``.
+   ``attend_blocked``.  Then internvl2-76b ``reduced()`` with numpy
+   patches, at the same tolerances: 2 prompts of 32 behind 16 patches and
+   8 new tokens, and 1 prompt of 2,040 behind them (2,056 positions, past
+   2048² only with the patches) and 4 new tokens: on the card its prefill
+   takes ``flash_attention`` once a layer, on the CPU ``attend_blocked``.
 8. Drives the serving path at full size: ``launch.serve`` with
    ``--arch mamba2-130m --full-size --batch 8 --prompt-len 1024
    --max-new 32`` (counts reset just before; fails unless
@@ -142,7 +147,18 @@
    raises for it, as the reference fails): exactly the launches by shape
    derived from its layout (30 ``quantile_fused``, 28 ``hist_level``, 2
    ``scaled_accum`` an aggregation), its kernels then held on the rows it
-   passed them (as for mamba2-130m's path), one aggregation timed.
+   passed them (as for mamba2-130m's path), one aggregation timed.  Then
+   internvl2-76b at its published width cut to 2 layers (3,905,986,560
+   parameters, seeded random f32 weights drawn on the card): the Engine on
+   2 prompts of 3,072 tokens behind 1,024 numpy patches and 32 new —
+   ``flash_attention`` exactly twice, both in prefill at q (2, 4096, 64,
+   128) over k, v (2, 4096, 8, 128) causal, the first held against
+   ``attention_ref`` on the card — timed as the others; the model is then
+   freed.  Then the client-side NAS on the card against the CPU (three
+   ZiCo scores at rtol 1e-3, the evolutionary search's choice equal), and
+   the quickstart example's ``main`` on the card: its round against the
+   same round with ``use_kernel=False`` and on the CPU, and its aggregation
+   launches counted exactly.
 9. Holds each kernel against its plain PyTorch version at the main path's
    shapes (weighted sums within 1e-5 of the summed magnitudes; thresholds
    bit-equal; trimmed sums of squares at rtol 1e-5; the SSD's y and state
@@ -167,7 +183,9 @@
    and q offsets 1 and 128 and on the inputs recurrentgemma-2b's request
    passed it (f32 and bf16; SDPA timed with the window as a boolean mask),
    on the inputs whisper-base's request passed it (causal (8, 4,096, 8,
-   64) and non-causal against (8, 1,500, 8, 64); f32 and bf16), and
+   64) and non-causal against (8, 1,500, 8, 64); f32 and bf16), on the
+   inputs internvl2-76b's request passed it (64 q heads over 8; f32 and
+   bf16), and
    refusing inputs that need a gradient or a negative offset; the
    aggregation kernels also on the arguments mamba2-130m's path passed
    them (``ssd_intra_chunk`` on the evaluation's inputs of each shape,
@@ -184,6 +202,7 @@ the repository around it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import hashlib
 import json
@@ -721,26 +740,34 @@ def check_fl_launches(hist: dict, arch: str, update_dtype: str,
 # (the paper transformer at its published size: its cut cannot run),
 # minicpm-2b through AdamW's generic accumulation and smollm-135m through
 # SGD's fused momentum; arctic-480b with its dense residual branch;
-# whisper-base with frames in every batch
+# whisper-base with frames in every batch, internvl2-76b with patches
 PHI = "phi3.5-moe-42b-a6.6b"
 RG = "recurrentgemma-2b"
 WHISPER = "whisper-base"
+VLM = "internvl2-76b"
 DENSE_CASES = [("smollm-135m", {}), ("tinyllama-1.1b", {}),
                ("codeqwen1.5-7b", {}), ("fedfa-paper-transformer", {}),
                ("minicpm-2b", {"grad_accum": 2}),
                ("smollm-135m", {"grad_accum": 2,
                                 "momentum_dtype": "bfloat16"}),
-               (PHI, {}), ("arctic-480b", {}), (RG, {}), (WHISPER, {})]
+               (PHI, {}), ("arctic-480b", {}), (RG, {}), (WHISPER, {}),
+               (VLM, {})]
 
 
-def numpy_frames(cfg, batch: int, seed: int):
-    """An encoder-decoder's frames (batch, n_frames, d_model) at scale 0.02
-    from a numpy generator, as a CPU tensor (None without an encoder)."""
-    if cfg.encoder is None:
-        return None
-    return torch.from_numpy(0.02 * np.random.default_rng(seed)
-                            .standard_normal((batch, cfg.encoder.n_frames,
-                                              cfg.d_model), dtype=np.float32))
+def numpy_inputs(cfg, batch: int, seed: int) -> dict:
+    """The batch entries besides the tokens, at scale 0.02 from a numpy
+    generator, as CPU tensors: an encoder-decoder's ``frames`` (batch,
+    n_frames, d_model), a vision-language model's ``patches`` (batch,
+    n_patches, vit_dim); none for the other families."""
+    if cfg.encoder is not None:
+        name, shape = "frames", (batch, cfg.encoder.n_frames, cfg.d_model)
+    elif cfg.vision is not None:
+        name, shape = "patches", (batch, cfg.vision.n_patches,
+                                  cfg.vision.vit_dim)
+    else:
+        return {}
+    return {name: torch.from_numpy(0.02 * np.random.default_rng(seed)
+                                   .standard_normal(shape, dtype=np.float32))}
 
 
 def flat_np(tree) -> np.ndarray:
@@ -789,7 +816,8 @@ def small_dense_check() -> dict:
     """Three train steps (``launch.steps.make_train_step``, steps 1-3: WSD's
     warmup makes step 0's rate 0) of each ``DENSE_CASES`` entry on the card
     and on the CPU from the same weights and tokens (batch 4, sequence
-    16; an encoder-decoder's frames from numpy, the same on both): losses
+    16; an encoder-decoder's frames or a vision-language model's patches
+    from numpy, the same on both): losses
     at rtol 1e-3, SGD's parameters at rtol 1e-3 / atol 1e-4;
     with AdamW, each step also taken on the card from the CPU's state
     (``adamw_step_close``) and the free-running steps held by
@@ -808,7 +836,7 @@ def small_dense_check() -> dict:
         cfg = cfg.replace(**over)
         params = init_params(cfg, torch.Generator().manual_seed(0))
         data = synthetic.lm_stream(cfg.vocab_size, 12, 16, seed=2)
-        frames = [numpy_frames(cfg, 4, seed=s) for s in range(1, 4)]
+        extras = [numpy_inputs(cfg, 4, seed=s) for s in range(1, 4)]
         mdt = torch.bfloat16 if cfg.momentum_dtype == "bfloat16" \
             else torch.float32
         adam = cfg.optimizer == "adamw"
@@ -822,9 +850,8 @@ def small_dense_check() -> dict:
             for s in range(1, 4):
                 tok = torch.as_tensor(data[(s - 1) * 4:s * 4],
                                       dtype=torch.int64, device=dev)
-                batch = {"tokens": tok}
-                if frames[s - 1] is not None:
-                    batch["frames"] = frames[s - 1].to(dev)
+                batch = {"tokens": tok, **{k: v.to(dev) for k, v in
+                                           extras[s - 1].items()}}
                 if adam and dev == "cpu":   # the state and the gradient
                     cpu_steps.append((p, st, batch, loss_and_grad(
                         p, cfg, batch, task="lm")[1]))
@@ -1188,7 +1215,7 @@ def hybrid_full_size(kernels, card: str, batch: int = 2,
     hd 256 and window 2,048, no other kernel ran, and every token is in the
     vocabulary.  Timed twice (the second warm), then a prefill alone with
     the first two launches held against ``attention_ref`` on the card (f32
-    within 2e-5), whose first launch's inputs feed ``flash_wide_rows``.
+    within 2e-5), whose first launch's inputs feed ``flash_rows``.
     Floors: a decode step reads the 14.2 GB of f32 weights once, 4.2 ms at
     3.35 TB/s; the prefill's f32 GEMMs are 36.7 TFLOP, 0.55 s at 67
     TFLOP/s."""
@@ -1260,88 +1287,28 @@ def hybrid_full_size(kernels, card: str, batch: int = 2,
         "flash_attention"]
 
 
-def flash_wide_rows(inputs, launches: int) -> list:
-    """``flash_attention`` at hd 256 on the inputs the full-size
-    recurrentgemma-2b request passed its first launch (q (2, 4096, 10,
-    256), k and v (2, 4096, 1, 256), causal, window 2,048): f32 as the path
-    ran it and the same values in bf16, against ``attention_ref`` (2e-5,
-    5e-2), f32 also within 1e-5 of its 3xTF32 emulation on the first
-    sequence; the kernel, the plain version and SDPA (the window as a
-    boolean mask, ``enable_gqa``) timed.  The bound counts the kept (q, k)
-    pairs, three TF32 products each for f32 and one bf16 product for
-    bf16."""
-    from repro_torch.kernels.flash_attention import ops, ref
-    out = []
-    for dt in (torch.float32, torch.bfloat16):
-        q, k, v = (t.to(dt) for t in inputs)
-        B, Sq, H, hd = q.shape
-        Sk, K = k.shape[1], k.shape[2]
-        kw = dict(causal=True, window=2048)
-        got = ops.attention(q, k, v, **kw).float()
-        want = ref.attention_ref(q, k, v, **kw).float()
-        tol = 2e-5 if dt == torch.float32 else 5e-2
-        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-        err, split_err = float((got - want).abs().max()), None
-        del want
-        if dt == torch.float32:
-            emul = ref.attention_split_tf32_ref(q[:1], k[:1], v[:1], **kw)
-            torch.testing.assert_close(got[:1], emul, rtol=1e-5, atol=1e-5)
-            split_err = float((got[:1] - emul).abs().max())
-            del emul
-        del got
-        keep = attention_keep(Sq, Sk, True, 2048)
-        products = 4 * B * H * hd * int(keep.sum())
-        b, by = bound(2 * B * (Sq * H + Sk * K) * hd * q.element_size(),
-                      *((3 * products, TF32_OPS_PER_S)
-                        if dt == torch.float32
-                        else (products, BF16_OPS_PER_S)))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        mask = torch.as_tensor(keep, device="cuda")
-        out.append({
-            "name": "flash_attention",
-            "dtype": "f32" if dt == torch.float32 else "bf16",
-            "path": f"{RG} serving (published size, 2 x 4,096)",
-            "shape": [B, Sq, Sk, H, K, hd], "causal": True, "window": 2048,
-            "q_offset": 0, "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
-            "launches": launches if dt == torch.float32 else 0,
-            "max_abs_err": err, "max_abs_err_vs_3xtf32": split_err,
-            "ms": time_ms(lambda: ops.attention(q, k, v, **kw), 10),
-            "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v, **kw), 2,
-                                warmup=1),
-            "bound_ms": b, "bound_by": by,
-            "library_ms": time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True), 3,
-                warmup=1)})
-        log(f"flash_attention hd 256 {out[-1]['dtype']}: "
-            f"{out[-1]['ms']:.3f} ms (bound {b:.3f}, plain "
-            f"{out[-1]['plain_ms']:.2f}, SDPA {out[-1]['library_ms']:.3f})")
-        del q, k, v, qt, kt, vt, mask
-    return out
-
-
-def small_audio_check() -> dict:
-    """whisper-base at ``reduced()`` (2 layers, d_model 256, 64 frames) on
-    the card and on the CPU, same weights, tokens and numpy frames:
-    ``forward``'s logits and ``loss_fn``'s loss at widths 1 and 0.5 (rtol
-    1e-3 / atol 1e-4, vocabulary padding aside)."""
+def small_family_check(arch: str) -> dict:
+    """``arch`` at ``reduced()`` on the card and on the CPU, same weights,
+    tokens and numpy inputs (whisper-base: 2 layers, d_model 256, 64
+    frames; internvl2-76b: 16 patches of width 128 in front of the
+    tokens): ``forward``'s logits and ``loss_fn``'s loss at widths 1 and
+    0.5 (rtol 1e-3 / atol 1e-4, vocabulary padding aside)."""
     from repro_torch.configs import get_arch
     from repro_torch.data import synthetic
     from repro_torch.models.masks import width_masks
     from repro_torch.models.model import forward, init_params, loss_fn
     from repro_torch.tree import tree_map
-    cfg = get_arch(WHISPER).reduced()
+    cfg = get_arch(arch).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0))
     tok = torch.as_tensor(synthetic.lm_stream(cfg.vocab_size, 4, 32, seed=3),
                           dtype=torch.int64)
-    frames = numpy_frames(cfg, 4, seed=3)
+    extras = numpy_inputs(cfg, 4, seed=3)
     out = {}
     for w in (1.0, 0.5):
         res = {}
         for dev in ("cuda", "cpu"):
-            batch = {"tokens": tok.to(dev), "frames": frames.to(dev)}
+            batch = {"tokens": tok.to(dev),
+                     **{k: v.to(dev) for k, v in extras.items()}}
             kw = dict(masks=width_masks(cfg, w).to(dev))
             p = tree_map(lambda t: t.to(dev), params)
             with torch.no_grad():
@@ -1350,9 +1317,9 @@ def small_audio_check() -> dict:
             res[dev] = (logits[..., :cfg.vocab_size].cpu().numpy(),
                         float(loss))
         np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-3,
-                                   atol=1e-4, err_msg=f"whisper logits w={w}")
+                                   atol=1e-4, err_msg=f"{arch} logits w={w}")
         np.testing.assert_allclose(res["cuda"][1], res["cpu"][1], rtol=1e-3,
-                                   err_msg=f"whisper loss w={w}")
+                                   err_msg=f"{arch} loss w={w}")
         out[f"w={w}"] = {"loss_cuda": res["cuda"][1],
                          "loss_cpu": res["cpu"][1],
                          "logits_max_abs_diff": float(np.abs(
@@ -1374,7 +1341,7 @@ def audio_full_size(kernels, card: str, batch: int = 8,
     ran, and every token is in the vocabulary.  Timed twice (the second
     warm), then a prefill alone with the first launch of each kind held
     against ``attention_ref`` on the card (f32 within 2e-5), whose inputs
-    feed ``flash_audio_rows``.  Floors: a decode step reads ≈ 0.28 GB of
+    feed ``flash_rows``.  Floors: a decode step reads ≈ 0.28 GB of
     f32 weights (all but the embedding and position tables) and recomputes
     the cross k and v (75 GFLOP), 1.1 ms at 67 TFLOP/s; the prefill's f32
     GEMMs are 1.97 TFLOP (encoder 0.45, decoder 1.44 with its cross q and
@@ -1399,7 +1366,7 @@ def audio_full_size(kernels, card: str, batch: int = 8,
            "card": card}
     eng = serve.Engine(cfg, params, capacity=prompt_len + max_new + 8)
     prompts = synthetic.lm_stream(cfg.vocab_size, batch, prompt_len, seed=1)
-    frames = numpy_frames(cfg, batch, seed=1)
+    frames = numpy_inputs(cfg, batch, seed=1)["frames"]
     kinds = {(prompt_len, prompt_len, True): cfg.n_layers,
              (prompt_len, T, False): cfg.n_layers}
     orig = ops.attention
@@ -1465,71 +1432,6 @@ def audio_full_size(kernels, card: str, batch: int = 8,
         f"{out['warm']['tokens_per_s']:.1f} tokens/s warm, peak "
         f"{out['warm']['peak_gib']:.2f} GiB")
     return out, inputs, cfg.n_layers
-
-
-def flash_audio_rows(inputs: dict, launches: int) -> list:
-    """``flash_attention`` on the inputs the full-size whisper-base request
-    passed its first launch of each kind — q (8, 4096, 8, 64) against k, v
-    (8, 4096, 8, 64) causal, and against k, v (8, 1500, 8, 64) non-causal
-    (1,500 = 23 kv tiles of 64 and 28 rows, or 11 of 128 and 92) — f32 as
-    the path ran them and the same values in bf16, against
-    ``attention_ref`` (2e-5, 5e-2), f32 also within 1e-5 of its 3xTF32
-    emulation on the first sequence; the kernel, the plain version and
-    SDPA (``is_causal`` or no mask) timed.  The bound counts the kept (q,
-    k) pairs, three TF32 products each for f32 and one bf16 product for
-    bf16, and q, k, v and o once."""
-    from repro_torch.kernels.flash_attention import ops, ref
-    out = []
-    for causal in (True, False):
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v = (t.to(dt) for t in inputs[causal])
-            B, Sq, H, hd = q.shape
-            Sk, K = k.shape[1], k.shape[2]
-            kw = dict(causal=causal)
-            got = ops.attention(q, k, v, **kw).float()
-            want = ref.attention_ref(q, k, v, **kw).float()
-            tol = 2e-5 if dt == torch.float32 else 5e-2
-            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-            err, split_err = float((got - want).abs().max()), None
-            del want
-            if dt == torch.float32:
-                emul = ref.attention_split_tf32_ref(q[:1], k[:1], v[:1], **kw)
-                torch.testing.assert_close(got[:1], emul, rtol=1e-5,
-                                           atol=1e-5)
-                split_err = float((got[:1] - emul).abs().max())
-                del emul
-            del got
-            products = 4 * B * H * hd * int(attention_keep(Sq, Sk, causal,
-                                                           None).sum())
-            b, by = bound(2 * B * (Sq * H + Sk * K) * hd * q.element_size(),
-                          *((3 * products, TF32_OPS_PER_S)
-                            if dt == torch.float32
-                            else (products, BF16_OPS_PER_S)))
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            out.append({
-                "name": "flash_attention",
-                "dtype": "f32" if dt == torch.float32 else "bf16",
-                "path": f"{WHISPER} serving (published size, 8 x 4,096, "
-                        f"{'self' if causal else 'cross'} attention)",
-                "shape": [B, Sq, Sk, H, K, hd], "causal": causal,
-                "window": None, "q_offset": 0, "route": "cuda",
-                "source": "src/repro_torch/csrc/flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
-                "launches": launches if dt == torch.float32 else 0,
-                "max_abs_err": err, "max_abs_err_vs_3xtf32": split_err,
-                "ms": time_ms(lambda: ops.attention(q, k, v, **kw), 10),
-                "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v, **kw),
-                                    2, warmup=1),
-                "bound_ms": b, "bound_by": by,
-                "library_ms": time_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal), 5, warmup=1)})
-            log(f"flash_attention whisper {'causal' if causal else 'cross'} "
-                f"{out[-1]['dtype']}: {out[-1]['ms']:.3f} ms (bound "
-                f"{b:.3f}, plain {out[-1]['plain_ms']:.2f}, SDPA "
-                f"{out[-1]['library_ms']:.3f})")
-            del q, k, v, qt, kt, vt
-    return out
 
 
 def audio_aggregation(kernels, card: str, m: int = 8) -> tuple:
@@ -1614,6 +1516,289 @@ def audio_aggregation(kernels, card: str, m: int = 8) -> tuple:
     log(f"{WHISPER} aggregation, m = {m}: {ms:.1f} ms, launches "
         f"{hist['launches']}")
     return res, hist
+
+
+def vlm_full_width(kernels, card: str, batch: int = 2,
+                   prompt_len: int = 3072, max_new: int = 32) -> tuple:
+    """internvl2-76b at its published width cut to 2 layers (d_model 8,192,
+    64 query and 8 kv heads of 128, d_ff 28,672, vocabulary 128,256, 1,024
+    patches of width 3,200; 3,905,986,560 parameters), seeded random f32
+    weights drawn on the card, served by ``launch.serve``'s Engine: 2
+    prompts of 3,072 tokens behind 1,024 numpy patches each (4,096
+    positions) and 32 greedy tokens, counts reset just before each
+    request.  Fails unless ``flash_attention`` ran exactly twice, once a
+    layer, at q (2, 4096, 64, 128) against k, v (2, 4096, 8, 128) causal,
+    no other kernel ran, and every token is in the vocabulary.  Timed twice
+    (the second warm), then a prefill alone (the same 2 launches, so decode
+    launched none) with the first launch held against ``attention_ref`` on
+    the card (f32 within 2e-5), whose inputs feed ``flash_rows``.
+    Floors: a decode step reads the layers' 6.85 GB of f32 weights and
+    ``lm_head``'s 4.2 GB, 3.3 ms at 3.35 TB/s; the prefill's f32 GEMMs are
+    28.4 TFLOP, 0.42 s at 67 TFLOP/s."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import _prefill_capacity
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import leaves
+    cfg = get_arch(VLM).replace(n_layers=2)
+    P = cfg.vision.n_patches
+    collect_garbage()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    check(n == 3_905_986_560, f"{VLM} has {n} parameters")
+    out = {"arch": VLM, "n_layers": cfg.n_layers, "n_params": n,
+           "weights_gb": n * 4 / 1e9, "init_s": time.perf_counter() - t0,
+           "batch": batch, "n_patches": P, "prompt_len": prompt_len,
+           "max_new": max_new, "card": card}
+    prompts = synthetic.lm_stream(cfg.vocab_size, batch, prompt_len, seed=1)
+    patches = numpy_inputs(cfg, batch, seed=1)["patches"].numpy()
+    eng = serve.Engine(cfg, params, capacity=_prefill_capacity(
+        cfg, {"tokens": prompts}) + max_new + 8)
+    S = P + prompt_len
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    want_calls = [((batch, S, H, hd), (batch, S, K, hd), True)] * cfg.n_layers
+    orig = ops.attention
+
+    def run(max_new_, check_first=None):
+        calls = []
+
+        def rec(q, k, v, **kw):
+            calls.append((tuple(q.shape), tuple(k.shape),
+                          kw.get("causal", True)))
+            o = orig(q, k, v, **kw)
+            if check_first is not None and len(calls) == 1:
+                want = ref.attention_ref(q, k, v, **kw)
+                torch.testing.assert_close(o, want, rtol=2e-5, atol=2e-5)
+                check_first.update(err=float((o - want).abs().max()),
+                                   inputs=(q, k, v))
+                del want
+            return o
+        for k in kernels:
+            k.reset()
+        collect_garbage()
+        torch.cuda.reset_peak_memory_stats()
+        ops.attention = rec
+        try:
+            tok = eng.generate(prompts, max_new=max_new_, patches=patches)
+        finally:
+            ops.attention = orig
+        launches = {k.symbol: k.launches for k in kernels}
+        check(launches == {k.symbol: cfg.n_layers
+                           if k.symbol == "flash_attention" else 0
+                           for k in kernels} and calls == want_calls,
+              f"{VLM} serving launches {launches}, calls {calls}")
+        check(tok.shape == (batch, max_new_)
+              and bool(((tok >= 0) & (tok < cfg.vocab_size)).all()),
+              f"{VLM} serving tokens {tok.shape} out of "
+              f"[0, {cfg.vocab_size})")
+        return launches, calls
+
+    for name in ("first", "warm"):
+        launches, calls = run(max_new)
+        t = eng.timing
+        out[name] = {"prefill_ms": t["prefill_s"] * 1e3,
+                     "decode_ms_per_step": t["decode_s"] * 1e3
+                     / t["decode_steps"],
+                     "tokens_per_s": batch * max_new
+                     / (t["prefill_s"] + t["decode_s"]),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches": launches,
+                     "launches_by_shape": [[list(q), list(k), c, n] for
+                                           (q, k, c), n in
+                                           collections.Counter(
+                                               calls).items()]}
+    first = {}
+    out["prefill_launches"] = run(1, first)[0]["flash_attention"]
+    out["decode_launches"] = (out["first"]["launches"]["flash_attention"]
+                              - out["prefill_launches"])
+    out["max_abs_err"] = first["err"]
+    log(f"{VLM} serving {batch} x ({P} patches + {prompt_len}), "
+        f"{cfg.n_layers} layers: prefill {out['warm']['prefill_ms']:.1f} ms, "
+        f"decode {out['warm']['decode_ms_per_step']:.2f} ms a step, "
+        f"{out['warm']['tokens_per_s']:.1f} tokens/s warm, peak "
+        f"{out['warm']['peak_gib']:.2f} GiB")
+    # the model goes before the kernel rows: attention_ref at this shape
+    # builds (2, 64, 4096, 4096) f32 scores, 8.6 GB
+    del eng, params
+    collect_garbage()
+    return out, first["inputs"], out["first"]["launches"]["flash_attention"]
+
+
+def flash_rows(inputs, launches: int, path: str, *, causal: bool = True,
+               window=None) -> list:
+    """``flash_attention`` on the inputs a path passed it: f32 as the path
+    ran them and the same values in bf16, against ``attention_ref`` (2e-5,
+    5e-2), f32 also within 1e-5 of its 3xTF32 emulation on the first
+    sequence; the kernel, the plain version and SDPA (``enable_gqa`` where
+    H > K; the window as a boolean mask, else ``is_causal``) timed.  The
+    bound counts the kept (q, k) pairs, three TF32 products each for f32
+    and one bf16 product for bf16, and q, k, v and o once."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dt) for t in inputs)
+        B, Sq, H, hd = q.shape
+        Sk, K = k.shape[1], k.shape[2]
+        kw = dict(causal=causal, window=window)
+        got = ops.attention(q, k, v, **kw).float()
+        want = ref.attention_ref(q, k, v, **kw).float()
+        tol = 2e-5 if dt == torch.float32 else 5e-2
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        err, split_err = float((got - want).abs().max()), None
+        del want
+        if dt == torch.float32:
+            emul = ref.attention_split_tf32_ref(q[:1], k[:1], v[:1], **kw)
+            torch.testing.assert_close(got[:1], emul, rtol=1e-5, atol=1e-5)
+            split_err = float((got[:1] - emul).abs().max())
+            del emul
+        del got
+        keep = attention_keep(Sq, Sk, causal, window)
+        products = 4 * B * H * hd * int(keep.sum())
+        b, by = bound(2 * B * (Sq * H + Sk * K) * hd * q.element_size(),
+                      *((3 * products, TF32_OPS_PER_S)
+                        if dt == torch.float32
+                        else (products, BF16_OPS_PER_S)))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_kw = (dict(attn_mask=torch.as_tensor(keep, device="cuda"))
+                   if window is not None else dict(is_causal=causal))
+        out.append({
+            "name": "flash_attention",
+            "dtype": "f32" if dt == torch.float32 else "bf16",
+            "path": path, "shape": [B, Sq, Sk, H, K, hd], "causal": causal,
+            "window": window, "q_offset": 0, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+            "launches": launches if dt == torch.float32 else 0,
+            "max_abs_err": err, "max_abs_err_vs_3xtf32": split_err,
+            "ms": time_ms(lambda: ops.attention(q, k, v, **kw), 10),
+            "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v, **kw), 2,
+                                warmup=1),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=H != K, **sdpa_kw), 5,
+                warmup=1)})
+        log(f"flash_attention {list(q.shape)} over {K} kv heads "
+            f"{out[-1]['dtype']}: {out[-1]['ms']:.3f} ms (bound {b:.3f}, "
+            f"plain {out[-1]['plain_ms']:.2f}, SDPA "
+            f"{out[-1]['library_ms']:.3f})")
+        del q, k, v, qt, kt, vt, sdpa_kw
+    return out
+
+
+def nas_card_vs_cpu() -> dict:
+    """The client-side NAS on the card and on the CPU, on
+    ``examples/nas_client_selection``'s setup (the same weights and probe
+    batches on both): ``zico_score`` of three architectures (full, half
+    width and depth, and 0.75 with one repeat off) at rtol 1e-3, and
+    ``evolutionary_search`` (population 6, generations 2, seed 0) picking
+    the same architecture."""
+    from repro_torch.core import nas
+    from repro_torch.examples import nas_client_selection
+    from repro_torch.models.masks import ClientArch
+    archs = [ClientArch(1.0, (2, 2)), ClientArch(0.5, (1, 1)),
+             ClientArch(0.75, (1, 2))]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        cfg, params, batches = nas_client_selection.setup(dev)
+        t0 = time.perf_counter()
+        scores = [nas.zico_score(cfg, a, params, batches) for a in archs]
+        best = nas.evolutionary_search(cfg, params, batches, population=6,
+                                       generations=2, seed=0)
+        res[dev] = (scores, best, time.perf_counter() - t0)
+    np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-3,
+                               err_msg="zico_score card vs cpu")
+    check(res["cuda"][1] == res["cpu"][1],
+          f"NAS picked {res['cuda'][1]} on the card, {res['cpu'][1]} on the "
+          "CPU")
+    best = res["cuda"][1]
+    return {"zico_cuda": res["cuda"][0], "zico_cpu": res["cpu"][0],
+            "best": [best.width_mult, list(best.section_depths)],
+            "seconds_cuda": res["cuda"][2], "seconds_cpu": res["cpu"][2]}
+
+
+def quickstart_on_card(kernels) -> dict:
+    """``examples/quickstart``'s ``main`` on the card (one FedFA round of
+    four mixed clients through the aggregation kernels), its printed lines
+    kept off standard output, counts reset just before.  Its ``fl_round``
+    call is run twice more on the same inputs: on the card with
+    ``use_kernel=False`` (the global at rtol 1e-4 / atol 1e-5, the plain
+    versions sum in another order; no kernel launched) and on the CPU
+    (loss rtol 1e-3, global rtol 1e-3 / atol 1e-4, as in
+    ``small_tree_check``).  Fails unless the kernel round launched exactly
+    ``scaled_accum`` twice (M' and Γ) and one ``quantile_fused`` a leaf at
+    its row shape (m = 4; every row fits one pass), its printed loss is
+    its loss and depth slot 1 moved."""
+    import contextlib
+    import dataclasses
+    import io
+    from repro_torch.core import flat
+    from repro_torch.examples import quickstart
+    from repro_torch.tree import tree_map
+    orig, seen = quickstart.fl_round, {}
+
+    def rec(params, cfg, fl, specs, batches, **kw):
+        p, loss = orig(params, cfg, fl, specs, batches, **kw)
+        torch.cuda.synchronize()
+        seen.update(cfg=cfg, m=len(specs), index=flat.FlatIndex(params),
+                    launches={k.symbol: k.launches for k in kernels},
+                    by_shape={k.symbol: dict(k.by_shape) for k in kernels})
+        seen["cuda"] = (p, loss)
+        seen["plain"] = orig(params, cfg, dataclasses.replace(
+            fl, use_kernel=False), specs, batches, **kw)
+        seen["cpu"] = orig(tree_map(lambda t: t.cpu(), params), cfg, fl,
+                           specs, {k: v.cpu() for k, v in batches.items()},
+                           **kw)
+        return p, loss
+
+    for k in kernels:
+        k.reset()
+    buf = io.StringIO()
+    quickstart.fl_round = rec
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = quickstart.main(["--device", "cuda"])
+    finally:
+        quickstart.fl_round = orig
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in kernels}
+    lines = buf.getvalue().splitlines()
+    log("quickstart: " + " | ".join(lines))
+    check(launches == seen["launches"],
+          f"quickstart's plain and CPU rounds launched kernels: {launches} "
+          f"after the kernel round's {seen['launches']}")
+    _, single, multi = fl_row_shapes(seen["cfg"], seen["m"])
+    want = {"scaled_accum": 2, "quantile_fused": sum(single.values()),
+            "hist_level": 4 * sum(multi.values())}
+    got = {k: v for k, v in launches.items() if v}
+    check(got == {k: v for k, v in want.items() if v}
+          and seen["by_shape"]["quantile_fused"] == single,
+          f"quickstart launches {got} by shape "
+          f"{seen['by_shape']['quantile_fused']}, expected {want} by shape "
+          f"{single}")
+    index = seen["index"]
+    g = {n: flat.flatten(index, tree_map(lambda t: t.cpu(),
+                                         seen[n][0])).numpy()
+         for n in ("cuda", "plain", "cpu")}
+    np.testing.assert_allclose(g["plain"], g["cuda"], rtol=1e-4, atol=1e-5,
+                               err_msg="quickstart: plain round vs kernels")
+    np.testing.assert_allclose(g["cpu"], g["cuda"], rtol=1e-3, atol=1e-4,
+                               err_msg="quickstart: CPU round vs card")
+    np.testing.assert_allclose(float(seen["cpu"][1]), res["loss"], rtol=1e-3,
+                               err_msg="quickstart: CPU loss vs card")
+    said = [ln for ln in lines if ln.startswith("round done")]
+    check(np.isfinite(res["loss"]) and res["delta_wq1"] > 0
+          and said == [f"round done; mean local loss {res['loss']:.3f}"],
+          f"quickstart on the card: loss {res['loss']}, lines {lines}")
+    return {"loss": res["loss"], "loss_cpu": float(seen["cpu"][1]),
+            "delta_embed": res["delta_embed"], "delta_wq1": res["delta_wq1"],
+            "max_abs_diff_plain": float(np.abs(g["plain"] - g["cuda"]).max()),
+            "max_abs_diff_cpu": float(np.abs(g["cpu"] - g["cuda"]).max()),
+            "launches": got}
 
 
 def dense_path(kernels, steps: int = 10) -> dict:
@@ -1714,17 +1899,22 @@ def model_index(arch: str = "smollm-135m"):
 
 def main_path_shapes(m: int, arch: str = "smollm-135m",
                      full_size: bool = True):
-    """(N, single-pass row shapes, multilevel row shapes) of ``arch``'s FL
-    path at full size (smollm-135m's is the main path), or at the CLI's
-    4-layer cut: each leaf's rows (m·lead, rest; the decoder's and the
-    encoder's depth-stacked leaves a row per layer), split by the JAX
-    dispatch rule; each as {shape: number of leaves}, smallest first."""
+    """``fl_row_shapes`` of ``arch``'s FL path at full size (smollm-135m's
+    is the main path), or at the CLI's 4-layer cut."""
+    from repro_torch.launch import train
+    return fl_row_shapes(train.fl_config(arch, "cls", 10,
+                                         full_size=full_size), m)
+
+
+def fl_row_shapes(cfg, m: int):
+    """(N, single-pass row shapes, multilevel row shapes) of an FL round of
+    ``m`` clients of ``cfg``: each leaf's rows (m·lead, rest; the decoder's
+    and the encoder's depth-stacked leaves a row per layer), split by the
+    JAX dispatch rule; each as {shape: number of leaves}, smallest first."""
     from repro_torch.core.flat import _path_stage_info
     from repro_torch.kernels.fedfa_quantile.ops import _LANES, _SINGLE_PASS_ELEMS
-    from repro_torch.launch import train
     from repro_torch.models.transformer import _is_shape, param_shapes
     from repro_torch.tree import leaves_with_path
-    cfg = train.fl_config(arch, "cls", 10, full_size=full_size)
     leaves = list(leaves_with_path(param_shapes(cfg), is_leaf=_is_shape))
     n = sum(int(np.prod(s)) for _, s in leaves)
     rows = [(m * s[0], int(np.prod(s[1:]))) if _path_stage_info(path)[0]
@@ -2268,26 +2458,30 @@ def fl_path_kernel_rows(hist: dict, arch: str, dtype: str, kernels,
     return out + list(ssd_rows.values())
 
 
-def serve_card_vs_cpu(flash, hybrid: bool = False,
-                      audio: bool = False) -> None:
+def serve_card_vs_cpu(flash, family: str = "dense") -> None:
     """The serving Engine on the card and on the CPU at the reduced sizes,
     same weights and prompts, greedy, with an f32 and a bf16 cache: 4
     prompts of 48 tokens and 8 new for mamba2-130m and the 4-layer
     smollm-135m, then 2 prompts of 2,100 for smollm-135m, whose prefill
     takes blocked attention — ``flash`` (the ``flash_attention`` kernel)
     once per layer on the card, ``attend_blocked`` on the CPU.  With
-    ``hybrid`` instead the sliding windows, through ring KV caches that
-    wrap in prefill and again in decode: recurrentgemma-2b ``reduced()``
+    ``family`` "hybrid" instead the sliding windows, through ring KV caches
+    that wrap in prefill and again in decode: recurrentgemma-2b ``reduced()``
     (window 128, capacity 232: a ring of 128) with 2 prompts of 200 and 24
     new tokens, and tinyllama-1.1b ``reduced()`` at ``Engine(window=64)``,
     capacity 128 (a ring of 64), 2 prompts of 100 and 24 new tokens.  With
-    ``audio`` instead whisper-base with numpy frames: ``reduced()`` (2
+    "audio" instead whisper-base with numpy frames: ``reduced()`` (2
     layers, d_model 256, 64 frames), 4 prompts of 48 and 8 new tokens; then
     at its published width cut to 2 decoder layers, 1 prompt of 2,816
     against 1,500 frames and 4 new tokens, whose prefill takes the flash
     route twice a layer on the card — causal self attention (2,816²) and
     non-causal cross attention (2,816 × 1,500 > 2048²) —, 4 launches, and
-    ``attend_blocked`` on the CPU."""
+    ``attend_blocked`` on the CPU.  With "vlm" instead internvl2-76b
+    ``reduced()`` with numpy patches: 2 prompts of 32 behind 16 patches and
+    8 new tokens; then 1 prompt of 2,040 behind the 16 patches (2,056
+    positions: the text alone stays under 2048², the patches carry it
+    over) and 4 new tokens, the flash route once a layer on the card, 2
+    launches, ``attend_blocked`` on the CPU."""
     from repro_torch.configs import get_arch
     from repro_torch.data import synthetic
     from repro_torch.launch import serve, train
@@ -2301,21 +2495,26 @@ def serve_card_vs_cpu(flash, hybrid: bool = False,
              ("smollm-135m", smollm, 4, 48, 8, 64, None, 0),
              ("smollm-135m", smollm, 2, 2100, 8, 2116, None,
               smollm.n_layers)]
-    if hybrid:
+    if family == "hybrid":
         cases = [(RG, get_arch(RG).reduced(), 2, 200, 24, 232, None, 0),
                  ("tinyllama-1.1b", get_arch("tinyllama-1.1b").reduced(), 2,
                   100, 24, 128, 64, 0)]
-    if audio:
+    if family == "audio":
         cases = [(WHISPER, get_arch(WHISPER).reduced(), 4, 48, 8, 64, None,
                   0),
                  (WHISPER, get_arch(WHISPER).replace(n_layers=2), 1, 2816, 4,
                   2828, None, 4)]
+    if family == "vlm":
+        vlm = get_arch(VLM).reduced()
+        cases = [(VLM, vlm, 2, 32, 8, 64, None, 0),
+                 (VLM, vlm, 1, 2040, 4, 2064, None, vlm.n_layers)]
     for (name, cfg, batch, prompt_len, max_new, capacity, window,
          flash_launches) in cases:
         params = init_params(cfg, torch.Generator().manual_seed(0))
         prompts = synthetic.lm_stream(cfg.vocab_size, batch, prompt_len,
                                       seed=0)
-        frames = numpy_frames(cfg, batch, seed=0)
+        extras = {k: v.numpy() for k, v in
+                  numpy_inputs(cfg, batch, seed=0).items()}
         for cache in (torch.float32, torch.bfloat16):
             out = {}
             for dev in ("cuda", "cpu"):
@@ -2324,7 +2523,7 @@ def serve_card_vs_cpu(flash, hybrid: bool = False,
                                    cache_dtype=cache)
                 flash.reset()
                 out[dev] = eng.generate(prompts, max_new=max_new,
-                                        frames=frames, return_logits=True)
+                                        return_logits=True, **extras)
                 want_launches = flash_launches if dev == "cuda" else 0
                 check(flash.launches == want_launches,
                       f"{name} prompt {prompt_len} on {dev}: "
@@ -2606,7 +2805,7 @@ def flash_checks(launches: int) -> list:
     launches, the others ``launches``, the long-prompt request's).  At hd
     256 (the wide route, two warpgroups a q head) the sweep's masks and q
     offsets 1 and 128, f32 and bf16 (rows with 0 launches: the path's shape
-    has its own rows, ``flash_wide_rows``).  Then the wrapper's refusal of
+    has its own rows, ``flash_rows``).  Then the wrapper's refusal of
     inputs that need a gradient and of a negative offset.  First, the
     narrow route (hd <= 128) gives the bits of the commit before the wide
     route was added (``FLASH_NARROW_SHA256``)."""
@@ -2751,7 +2950,9 @@ def main() -> int:
     print(json.dumps({"small_moe_prefill": small_moe_prefill_check()}),
           flush=True)
     print(json.dumps({"small_dense": small_dense_check()}), flush=True)
-    print(json.dumps({"small_audio": small_audio_check()}), flush=True)
+    print(json.dumps({"small_audio": small_family_check(WHISPER)}),
+          flush=True)
+    print(json.dumps({"small_vlm": small_family_check(VLM)}), flush=True)
     print(json.dumps({"small_tree": small_tree_check(kernels)}), flush=True)
     f32_path = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL]
     launches, shapes, quantile_calls = {}, {}, {}
@@ -2853,8 +3054,9 @@ def main() -> int:
     print(json.dumps({"trimmed_norm_path": tn}), flush=True)
     del g
     serve_card_vs_cpu(FLASH_ATTENTION)
-    serve_card_vs_cpu(FLASH_ATTENTION, hybrid=True)
-    serve_card_vs_cpu(FLASH_ATTENTION, audio=True)
+    serve_card_vs_cpu(FLASH_ATTENTION, "hybrid")
+    serve_card_vs_cpu(FLASH_ATTENTION, "audio")
+    serve_card_vs_cpu(FLASH_ATTENTION, "vlm")
     for arch, shape, expect in (
             ("mamba2-130m", (8, 1024, 32),     # one SSD launch per layer
              {"ssd_intra_chunk": MAMBA2_130M.n_layers}),
@@ -2875,7 +3077,9 @@ def main() -> int:
     # the inputs that request passed it
     rg, rg_inputs, rg_launches = hybrid_full_size(kernels, card)
     print(json.dumps({"hybrid_full_size": rg}), flush=True)
-    rg_rows = flash_wide_rows(rg_inputs, rg_launches)
+    rg_rows = flash_rows(rg_inputs, rg_launches,
+                         f"{RG} serving (published size, 2 x 4,096)",
+                         window=2048)
     del rg_inputs
     # whisper-base at its published size: serving 8 x 4,096 against 1,500
     # frames, 6 causal and 6 non-causal flash_attention launches, then the
@@ -2883,7 +3087,11 @@ def main() -> int:
     # aggregation kernels on an m = 8 cohort of its trees
     audio, audio_inputs, audio_launches = audio_full_size(kernels, card)
     print(json.dumps({"audio_full_size": audio}), flush=True)
-    audio_rows = flash_audio_rows(audio_inputs, audio_launches)
+    audio_rows = [row for causal, kind in ((True, "self"), (False, "cross"))
+                  for row in flash_rows(
+                      audio_inputs[causal], audio_launches,
+                      f"{WHISPER} serving (published size, 8 x 4,096, "
+                      f"{kind} attention)", causal=causal)]
     del audio_inputs
     agg, agg_hist = audio_aggregation(kernels, card)
     print(json.dumps({"audio_aggregation": agg}), flush=True)
@@ -2891,12 +3099,24 @@ def main() -> int:
         agg_hist, WHISPER, "f32", kernels,
         path=f"{WHISPER} aggregation (m = 8, published size)")
     del agg_hist
+    # internvl2-76b at its published width, 2 layers: serving 2 x (1,024
+    # patches + 3,072 tokens), 2 flash_attention launches at 64 q heads over
+    # 8, then the kernel's rows on the inputs that request passed it
+    vlm, vlm_inputs, vlm_launches = vlm_full_width(kernels, card)
+    print(json.dumps({"vlm_full_width": vlm}), flush=True)
+    vlm_rows = flash_rows(vlm_inputs, vlm_launches,
+                          f"{VLM} serving (published width, 2 layers, 2 x "
+                          "(1,024 patches + 3,072 tokens))")
+    del vlm_inputs
+    print(json.dumps({"nas": nas_card_vs_cpu(), "card": card}), flush=True)
+    print(json.dumps({"quickstart": quickstart_on_card(kernels),
+                      "card": card}), flush=True)
     print(json.dumps({"kernels": kernel_checks(launches, shapes,
                                                quantile_calls)
                       + hist_checks(launches, shapes) + fl_rows + ssd_checks(
         launches["mamba2-130m@1024"]["ssd_intra_chunk"]) + flash_checks(
         launches["smollm-135m@4096"]["flash_attention"]) + [phi_row]
-        + rg_rows + audio_rows}),
+        + rg_rows + audio_rows + vlm_rows}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Architecture configuration (own copy of ``repro.configs.base``: the
-dense, ssm, moe, hybrid and audio families).  The field values, derived
+dense, ssm, moe, hybrid, audio and vlm families).  The field values, derived
 properties and ``reduced()`` are held equal to the JAX package's by
 ``tests/test_torch_static.py``."""
 from __future__ import annotations
@@ -58,9 +58,19 @@ class EncoderConfig:
 
 
 @dataclass(frozen=True)
+class VisionConfig:
+    """Frontend of the vision-language model (internvl2).  The vision
+    encoder is a stub: the model takes precomputed patch embeddings
+    (B, n_patches, vit_dim), and a trainable MLP projector maps them to
+    d_model."""
+    n_patches: int = 1024
+    vit_dim: int = 3200
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense, ssm, moe, hybrid, audio ported
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -84,6 +94,7 @@ class ArchConfig:
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     encoder: Optional[EncoderConfig] = None
+    vision: Optional[VisionConfig] = None
 
     # --- FedFA ---
     n_sections: int = 4              # contiguous groups of scan repeats
@@ -169,6 +180,9 @@ class ArchConfig:
         if self.encoder:
             kw["encoder"] = dataclasses.replace(self.encoder, n_layers=2,
                                                 n_frames=64)
+        if self.vision:
+            kw["vision"] = dataclasses.replace(self.vision, n_patches=16,
+                                               vit_dim=128)
         if self.attn_window:
             kw["attn_window"] = min(self.attn_window, 128)
         return self.replace(**kw)

@@ -1,10 +1,9 @@
-"""Registry of the ported architectures (own copy of the dense, ssm, moe,
-hybrid and audio entries of ``repro.configs.registry``, field for
-field)."""
+"""Registry of the architectures (own copy of ``repro.configs.registry``,
+field for field)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (ArchConfig, EncoderConfig, MoEConfig,
-                                     RGLRUConfig, SSMConfig)
+                                     RGLRUConfig, SSMConfig, VisionConfig)
 
 MINICPM_2B = ArchConfig(
     name="minicpm-2b", family="dense", citation="arXiv:2404.06395",
@@ -63,6 +62,14 @@ PHI35_MOE = ArchConfig(
     fsdp=True, grad_accum=8, prefill_chunk=1024,
 )
 
+INTERNVL2_76B = ArchConfig(
+    name="internvl2-76b", family="vlm", citation="arXiv:2404.16821",
+    n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8, d_ff=28672,
+    vocab_size=128_256, d_head=128,
+    vision=VisionConfig(n_patches=1024, vit_dim=3200),
+    fsdp=True, serve_fsdp=True, grad_accum=16,
+)
+
 CODEQWEN_7B = ArchConfig(
     name="codeqwen1.5-7b", family="dense", citation="hf:Qwen/CodeQwen1.5-7B",
     n_layers=32, d_model=4096, n_heads=32, n_kv_heads=32, d_ff=13440,
@@ -92,12 +99,13 @@ FEDFA_PAPER_TRANSFORMER = ArchConfig(
 
 ARCHS = {a.name: a for a in (MINICPM_2B, SMOLLM_135M, ARCTIC_480B,
                              RECURRENTGEMMA_2B, MAMBA2_130M, TINYLLAMA_1B,
-                             PHI35_MOE, CODEQWEN_7B, WHISPER_BASE,
+                             PHI35_MOE, INTERNVL2_76B, CODEQWEN_7B,
+                             WHISPER_BASE,
                              FEDFA_PAPER_TRANSFORMER)}
 
 
 def get_arch(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise NotImplementedError(
-            f"arch {name!r} is not yet ported; ported: {sorted(ARCHS)}")
+            f"arch {name!r} is not in the registry; known: {sorted(ARCHS)}")
     return ARCHS[name]

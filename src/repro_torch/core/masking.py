@@ -137,6 +137,9 @@ def axis_mask_tree(cfg: ArchConfig, m: WidthMasks) -> Params:
         t["lm_head"] = AX(m.d_model, None)
     if cfg.rope_theta <= 0.0:
         t["pos_embed"] = AX(None, m.d_model)
+    if cfg.vision is not None:
+        t["projector"] = {"w1": AX(None, m.d_model),
+                          "w2": AX(m.d_model, m.d_model)}
     if cross:
         t["encoder"] = {"blocks": _block_ax("attn", cfg, m),
                         "final_norm": _norm_ax(cfg, m.d_model)}

@@ -2,7 +2,7 @@
 
     python -m repro_torch.launch.profile [--clients 8] [--top 15]
         [--update-dtype f32|bf16|int8] [--arch smollm-135m|mamba2-130m]
-    python -m repro_torch.launch.profile --serve mamba2-130m|whisper-base|...
+    python -m repro_torch.launch.profile --serve mamba2-130m|internvl2-76b|...
         [--prompt-len 1024] [--batch 8] [--n-layers L] [--top 15]
     python -m repro_torch.launch.profile --chunked --arch ARCH
         [--prompt-len 1024] [--batch 8] [--n-layers L] [--top 15]
@@ -188,8 +188,9 @@ def _report(t: dict, top: int) -> dict:
 def serving(arch: str, prompt_len: int, top: int, batch: int = BATCH,
             n_layers: Optional[int] = None) -> dict:
     """Traces of ``launch.serve`` at full size (its weights, prompts and,
-    for an encoder-decoder, frames; ``n_layers``, if given, cuts its
-    depth), after its own untraced request:
+    for an encoder-decoder, frames, for a vision-language model, patches;
+    ``n_layers``, if given, cuts its depth), after its own untraced
+    request:
     the prefill is one ``generate`` of one token; the decode is one
     ``generate`` of 1 + ``DECODE_STEPS`` tokens less that prefill's
     trace."""
@@ -197,7 +198,8 @@ def serving(arch: str, prompt_len: int, top: int, batch: int = BATCH,
     out = serve.serve(arch, batch, prompt_len, 1 + DECODE_STEPS,
                       full_size=True, n_layers=n_layers)
     gen = lambda n: lambda: out["engine"].generate(
-        out["prompts"], max_new=n, frames=out["frames"])
+        out["prompts"], max_new=n, frames=out["frames"],
+        patches=out["patches"])
     prefill = _trace([gen(1)])
     both = _trace([gen(1 + DECODE_STEPS)])
     return {"prefill": _report(prefill, top),

@@ -1,7 +1,8 @@
 """Batched serving: prefill, then greedy or temperature decode over a KV
 cache (a ring under a sliding window) or a recurrent state; an
 encoder-decoder (whisper) takes frames, encodes them once in prefill and
-attends to that output in every decode step.
+attends to that output in every decode step; a vision-language model
+(internvl2) takes patches, projected in front of the prompt in prefill.
 
     python -m repro_torch.launch.serve [--arch smollm-135m|mamba2-130m|...]
         [--batch 8] [--prompt-len 32] [--max-new 32] [--full-size]
@@ -11,9 +12,11 @@ Runs on ``cuda`` unless ``--device`` says otherwise.  The model is cut to
 ``reduced()`` size, as the JAX CLI cuts it, unless ``--full-size``, and to
 ``--n-layers`` layers where that is given; its weights are drawn from seed
 0 and it decodes greedily.  An encoder-decoder's frames (batch,
-n_frames, d_model) are drawn at scale 0.02 from a numpy generator of seed
-0.  Prints one JSON line: the timings, tokens/s and
-peak device memory, and the first two sequences.
+n_frames, d_model) and a vision-language model's patches (batch,
+n_patches, vit_dim) are drawn at scale 0.02 from a numpy generator of seed
+0.  The KV cache holds the prompt, the patches in front of it and the
+decoded tokens, with 8 positions to spare.  Prints one JSON line: the
+timings, tokens/s and peak device memory, and the first two sequences.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.launch.steps import make_decode_step
+from repro_torch.launch.steps import _prefill_capacity, make_decode_step
 from repro_torch.models import model as model_mod
 
 
@@ -34,9 +37,11 @@ class Engine:
     """Minimal batched inference engine around prefill / decode_step.
     ``window`` (else the config's ``attn_window``) slides the attention
     window; its KV caches are then rings of min(capacity, window).  A
-    request whose positions outgrow a learned ``pos_embed`` table is
-    refused (the reference would reuse the table's last row: ROADMAP
-    queue 3 item 26)."""
+    request whose positions (the patches in front of the prompt
+    included) outgrow the KV cache is refused (the reference drops the
+    writes past its end: ROADMAP queue 3 item 28), and so is one that
+    outgrows a learned ``pos_embed`` table (the reference would reuse the
+    table's last row: ROADMAP queue 3 item 26)."""
 
     def __init__(self, cfg, params, *, window: Optional[int] = None,
                  capacity: int = 512, cache_dtype=torch.bfloat16):
@@ -48,13 +53,16 @@ class Engine:
 
     @torch.no_grad()
     def generate(self, tokens, *, max_new: int = 32, frames=None,
-                 temperature: float = 0.0, seed: int = 0,
+                 patches=None, temperature: float = 0.0, seed: int = 0,
                  return_logits: bool = False):
         """tokens (B, S) -> (B, max_new) int32 numpy: greedy when
         ``temperature`` is 0, else sampled with a generator seeded by
         ``seed``.  ``frames`` (B, T, D): an encoder-decoder's input,
         encoded once in prefill; every decode step recomputes its cross
-        attention's k and v from that output, as the reference does.  With
+        attention's k and v from that output, as the reference does.
+        ``patches`` (B, P, vit_dim): a vision-language model's input,
+        projected in front of the prompt, which is then P + S positions
+        long.  With
         ``return_logits`` also the (B, max_new, V) f32 logits each token was
         picked from.  ``self.timing`` holds the
         prefill's and the decode steps' seconds, each ended by a device
@@ -63,6 +71,8 @@ class Engine:
         tok = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                               device=dev)
         B, S = tok.shape
+        if patches is not None:
+            S += np.asarray(patches).shape[1]
         # the KV cache holds what the request writes, or under a window a
         # ring that is at least as long as the window (shorter, it would
         # overwrite positions still inside the window)
@@ -82,6 +92,9 @@ class Engine:
         if frames is not None:
             batch["frames"] = torch.as_tensor(np.asarray(frames),
                                               device=dev)
+        if patches is not None:
+            batch["patches"] = torch.as_tensor(np.asarray(patches),
+                                               device=dev)
         gen = (torch.Generator(device=dev).manual_seed(seed)
                if temperature > 0.0 else None)
         sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: 0)
@@ -140,23 +153,30 @@ def serve(arch: str = "smollm-135m", batch: int = 8, prompt_len: int = 32,
           max_new: int = 32, *, full_size: bool = False,
           n_layers: Optional[int] = None, device=None) -> dict:
     """The CLI's run: a model from ``build``, ``batch`` synthetic prompts
-    (and an encoder-decoder's frames), one greedy ``generate``.  Returns
-    the tokens, the timings and, on a card, its peak memory."""
+    (and an encoder-decoder's frames or a vision-language model's
+    patches), one greedy ``generate``.  Returns the tokens, the timings
+    and, on a card, its peak memory."""
     from repro_torch.data import synthetic
 
     dev = resolve_device(device)
     cfg, params = build(arch, full_size=full_size, n_layers=n_layers,
                         device=dev)
-    eng = Engine(cfg, params, capacity=prompt_len + max_new + 8,
-                 window=cfg.attn_window)
     prompts = synthetic.lm_stream(cfg.vocab_size, batch, prompt_len, seed=0)
-    frames = None
+    eng = Engine(cfg, params, window=cfg.attn_window,
+                 capacity=_prefill_capacity(cfg, {"tokens": prompts})
+                 + max_new + 8)
+    frames = patches = None
     if cfg.encoder is not None:
         frames = 0.02 * np.random.default_rng(0).standard_normal(
             (batch, cfg.encoder.n_frames, cfg.d_model), dtype=np.float32)
+    if cfg.vision is not None:
+        patches = 0.02 * np.random.default_rng(0).standard_normal(
+            (batch, cfg.vision.n_patches, cfg.vision.vit_dim),
+            dtype=np.float32)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    tokens = eng.generate(prompts, max_new=max_new, frames=frames)
+    tokens = eng.generate(prompts, max_new=max_new, frames=frames,
+                          patches=patches)
     t = eng.timing
     out = {"arch": arch, "full_size": full_size, "n_layers": cfg.n_layers,
            "device": str(dev),
@@ -167,7 +187,7 @@ def serve(arch: str = "smollm-135m", batch: int = 8, prompt_len: int = 32,
            "tokens_per_s": batch * max_new / (t["prefill_s"]
                                               + t["decode_s"]),
            "tokens": tokens, "engine": eng, "prompts": prompts,
-           "frames": frames}
+           "frames": frames, "patches": patches}
     if dev.type == "cuda":
         out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     return out
@@ -191,7 +211,7 @@ def main(argv=None) -> dict:
                 device=args.device)
     print(json.dumps({**{k: v for k, v in out.items()
                          if k not in ("tokens", "engine", "prompts",
-                                      "frames")},
+                                      "frames", "patches")},
                       "first": out["tokens"][:2].tolist()}), flush=True)
     return out
 

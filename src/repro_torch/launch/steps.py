@@ -24,8 +24,9 @@ Params = Dict[str, Any]
 def make_train_step(cfg: ArchConfig, total_steps: int = 1000):
     """train_step(params, opt_state, batch, step) -> (params, opt_state,
     loss): one optimizer step on ``batch`` ({'tokens': (B, S)}, and
-    'frames' (B, T, D) with an encoder; every entry split into the
-    microbatches alike) at the schedule's rate for ``step``."""
+    'frames' (B, T, D) with an encoder or 'patches' (B, P, vit_dim) with a
+    vision frontend; every entry split into the microbatches alike) at the
+    schedule's rate for ``step``."""
     sched = make_schedule(cfg.schedule, cfg.learning_rate, total_steps,
                           warmup=max(total_steps // 100, 1))
 
@@ -102,9 +103,12 @@ def make_prefill_step(cfg: ArchConfig, *, window: Optional[int] = None,
 
 
 def _prefill_capacity(cfg: ArchConfig, batch) -> int:
-    """Cache positions a prefill needs: the prompt's (the vision family's
-    patches, which would add to it, are not ported)."""
-    return batch["tokens"].shape[1]
+    """Cache positions a prefill needs: the prompt's, and the patches in
+    front of it with a vision frontend."""
+    n = batch["tokens"].shape[1]
+    if cfg.vision is not None:
+        n += cfg.vision.n_patches
+    return n
 
 
 def make_decode_step(cfg: ArchConfig, *, window: Optional[int] = None,

@@ -46,8 +46,9 @@ def run_dense(arch: str, steps: int, batch: int, seq_len: int,
               device=None, params=None) -> dict:
     """Plain pretraining of ``arch`` for ``steps`` steps of ``batch``
     sequences of ``seq_len`` tokens (one microbatch a step, as the
-    reference); an encoder-decoder's frames (batch, n_frames, d_model) are
-    drawn each step at scale 0.02 from a CPU generator seeded by ``seed``.
+    reference); an encoder-decoder's frames (batch, n_frames, d_model) or a
+    vision-language model's patches (batch, n_patches, vit_dim) are drawn
+    each step at scale 0.02 from a CPU generator seeded by ``seed``.
     ``params``: the initial weights (for instance the reference's, through
     ``params_from_numpy``); drawn from ``seed`` on the CPU if None."""
     from repro_torch.configs import get_arch
@@ -77,6 +78,10 @@ def run_dense(arch: str, steps: int, batch: int, seq_len: int,
         if cfg.encoder is not None:
             batch_d["frames"] = (0.02 * torch.randn(
                 (batch, cfg.encoder.n_frames, cfg.d_model),
+                generator=frame_gen)).to(dev)
+        if cfg.vision is not None:
+            batch_d["patches"] = (0.02 * torch.randn(
+                (batch, cfg.vision.n_patches, cfg.vision.vit_dim),
                 generator=frame_gen)).to(dev)
         params, opt, loss = step_fn(params, opt, batch_d, s)
         losses.append(float(loss))
@@ -147,6 +152,10 @@ def run_fl(arch: str, rounds: int, n_clients: int, *, strategy: str = "fedfa",
         # 'frames' (ROADMAP queue 3 item 25)
         raise ValueError(f"{arch}: FL batches carry no 'frames' for its "
                          "encoder (the reference fails there too)")
+    if cfg.vision is not None:
+        # nor patches: KeyError: 'patches' (ROADMAP queue 3 item 27)
+        raise ValueError(f"{arch}: FL batches carry no 'patches' for its "
+                         "projector (the reference fails there too)")
     rng = np.random.default_rng(seed)
     if params is None:
         # drawn on the CPU, so a seed gives the same weights on every device

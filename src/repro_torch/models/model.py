@@ -1,8 +1,9 @@
 """Top-level model API: train forward, losses, serving (prefill and
 decode over KV caches, ring caches under a sliding window, and SSM and
 RG-LRU states), the encoder of the encoder-decoder (whisper: frames in,
-``enc_out`` to every decoder block's cross attention) and the loader that
-carries the JAX package's parameters across.
+``enc_out`` to every decoder block's cross attention), the patch projector
+of the vision-language model (internvl2: projected patches in front of the
+tokens) and the loader that carries the JAX package's parameters across.
 
 Entry points take width masks and depth gates; the global model is the
 runtime with all-ones masks.
@@ -18,7 +19,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import apply_norm, matmul, softcap
+from repro_torch.models.layers import ACTIVATIONS, apply_norm, matmul, softcap
 from repro_torch.models.masks import WidthMasks, full_masks
 from repro_torch.models.transformer import (AUX_LOSSES, _is_shape,  # noqa: F401
                                             init_params, param_shapes,
@@ -71,6 +72,30 @@ def _enc_out(params: Params, cfg: ArchConfig, batch, m: WidthMasks):
     return _encoder_apply(params, cfg, batch["frames"], m)
 
 
+def _project_patches(params: Params, patches: torch.Tensor,
+                     m: WidthMasks) -> torch.Tensor:
+    """The projector over precomputed patch embeddings (B, P, vit_dim)
+    (the reference's stub vision encoder): gelu (tanh form, as
+    ``jax.nn.gelu``) of patches @ w1, then @ w2, masked to the active
+    d_model."""
+    pr = params["projector"]
+    h = matmul(ACTIVATIONS["gelu"](matmul(patches, pr["w1"])), pr["w2"])
+    if m.d_model is not None:
+        h = h * m.d_model.to(h.dtype)
+    return h
+
+
+def _inputs(params: Params, cfg: ArchConfig, batch, m: WidthMasks):
+    """(x, enc_out): the token embeddings, with a vision frontend behind
+    the projected ``batch['patches']`` (cast to the embeddings' dtype), and
+    the encoder's output (None without an encoder)."""
+    x = _embed(params, batch["tokens"], m)
+    if cfg.vision is not None:
+        pe = _project_patches(params, batch["patches"], m)
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
+    return x, _enc_out(params, cfg, batch, m)
+
+
 def _head(params: Params, cfg: ArchConfig, x: torch.Tensor, m: WidthMasks):
     x = apply_norm(cfg.norm, x, params["final_norm"], m.d_model, cfg.norm_eps)
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
@@ -87,14 +112,15 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             masks: Optional[WidthMasks] = None,
             gates: Optional[torch.Tensor] = None):
     """Training / evaluation forward: batch {'tokens': (B, S)[, 'frames':
-    (B, T, D) with an encoder]} -> (logits (B, S, V), aux losses
-    {'lb_loss', 'z_loss'}: the MoE blocks' sums, 0 without them).
-    ``gates`` flex stage 0's depth; later stages and the encoder stay
-    full."""
+    (B, T, D) with an encoder][, 'patches': (B, P, vit_dim) with a vision
+    frontend]} -> (logits (B, S, V), aux losses {'lb_loss', 'z_loss'}: the
+    MoE blocks' sums, 0 without them).  Patches go in front of the tokens,
+    positions run over P + S, and the logits cover the text positions
+    only.  ``gates`` flex stage 0's depth; later stages and the encoder
+    stay full."""
     device = params["embed"].device
     m = masks or full_masks(cfg).to(device)
-    x = _embed(params, batch["tokens"], m)
-    enc_out = _enc_out(params, cfg, batch, m)
+    x, enc_out = _inputs(params, cfg, batch, m)
     positions = torch.arange(x.shape[1], device=device)[None]
     aux_tot = {name: torch.zeros((), dtype=torch.float32, device=device)
                for name in AUX_LOSSES}
@@ -103,7 +129,10 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
                                 cfg, m, gates=g, positions=positions,
                                 window=cfg.attn_window, enc_out=enc_out)
         aux_tot = {k: v + aux[k] for k, v in aux_tot.items()}
-    return _head(params, cfg, x, m), aux_tot
+    logits = _head(params, cfg, x, m)
+    if cfg.vision is not None:
+        logits = logits[:, batch["patches"].shape[1]:]
+    return logits, aux_tot
 
 
 def _stage_gates(cfg: ArchConfig, gates0: Optional[torch.Tensor], device):
@@ -207,7 +236,9 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             chunk_size: Optional[int] = None):
     """Process the prompt; returns (last-position logits (B, 1, V), caches,
     enc_out): the encoder's output on ``batch['frames']`` with an encoder
-    (every decode step takes it), else None.
+    (every decode step takes it), else None.  A vision frontend puts the
+    projected ``batch['patches']`` in front of the tokens, and the prompt
+    is then P + S positions long.
     The caches hold ``capacity`` positions (the prompt's length if None),
     or under a sliding window (``window``, else ``cfg.attn_window``) a ring
     of min(capacity, window), stored in ``cache_dtype`` (SSM and RG-LRU
@@ -222,10 +253,8 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     from a zero state, as the reference's does (ROADMAP queue 3 item 21)."""
     device = params["embed"].device
     m = masks or full_masks(cfg).to(device)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = _embed(params, tokens, m)
-    enc_out = _enc_out(params, cfg, batch, m)
+    x, enc_out = _inputs(params, cfg, batch, m)
+    B, S = x.shape[:2]
     caches = init_caches(params, cfg, B, capacity or S, window=window,
                          dtype=cache_dtype)
     win = window if window is not None else cfg.attn_window

@@ -30,7 +30,8 @@ Params = Dict[str, Any]
 
 
 _FAMILY_KINDS = {"dense": {"attn"}, "ssm": {"ssd"}, "moe": {"attn"},
-                 "hybrid": {"rglru", "attn"}, "audio": {"attn"}}
+                 "hybrid": {"rglru", "attn"}, "audio": {"attn"},
+                 "vlm": {"attn"}}
 
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -54,7 +55,9 @@ def param_shapes(cfg: ArchConfig) -> Params:
     With an encoder every decoder attention block has a cross step
     (``lnx``, ``xattn``), and ``encoder`` holds its own attention blocks
     stacked over ``encoder.n_layers`` and a final norm; ``rope_theta`` 0
-    adds the learned ``pos_embed`` table of max(max_seq_len, 2048) rows."""
+    adds the learned ``pos_embed`` table of max(max_seq_len, 2048) rows;
+    a vision frontend adds the patch ``projector`` (``w1`` (vit_dim, D),
+    ``w2`` (D, D))."""
     check_ported(cfg)
     D, F, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
@@ -93,6 +96,8 @@ def param_shapes(cfg: ArchConfig) -> Params:
         p["lm_head"] = (D, cfg.padded_vocab)
     if cfg.rope_theta <= 0.0:
         p["pos_embed"] = (max(cfg.max_seq_len, 2048), D)
+    if cfg.vision is not None:
+        p["projector"] = {"w1": (cfg.vision.vit_dim, D), "w2": (D, D)}
     if cross:
         p["encoder"] = {"blocks": block("attn", cfg.encoder.n_layers),
                         "final_norm": norm_shapes(cfg.norm, D)}

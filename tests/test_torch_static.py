@@ -24,7 +24,7 @@ from repro.models import masks as jmasks
 from repro.optim import optimizers as jopt
 from repro.optim import schedules as jsched
 from repro.configs.base import RGLRUConfig as JRGLRUConfig
-from repro_torch.configs import (ArchConfig, MAMBA2_130M, RGLRUConfig,
+from repro_torch.configs import (ARCHS, ArchConfig, MAMBA2_130M, RGLRUConfig,
                                  SMOLLM_135M, get_arch)
 from repro_torch.core import flat, masking
 from repro_torch.data import partition, pipeline, synthetic
@@ -45,11 +45,12 @@ def _np(x):
     return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
 
 
-# the dense, moe, hybrid and audio registry entries copied besides
+# the dense, moe, hybrid, audio and vlm registry entries copied besides
 # smollm-135m
 _DENSE_COPIES = ("minicpm-2b", "tinyllama-1.1b", "codeqwen1.5-7b",
                  "fedfa-paper-transformer", "phi3.5-moe-42b-a6.6b",
-                 "arctic-480b", "recurrentgemma-2b", "whisper-base")
+                 "arctic-480b", "recurrentgemma-2b", "whisper-base",
+                 "internvl2-76b")
 
 
 def _rglru_equal(a: RGLRUConfig, b, d_model: int) -> None:
@@ -73,7 +74,7 @@ def _cfg_fields_equal(port: ArchConfig, ref) -> None:
             assert dataclasses.asdict(a) == dataclasses.asdict(b)
         elif f.name == "rglru" and a is not None:
             _rglru_equal(a, b, port.d_model)
-        elif f.name == "encoder" and a is not None:  # own EncoderConfig
+        elif f.name in ("encoder", "vision") and a is not None:  # own copies
             assert [x.name for x in dataclasses.fields(a)] == \
                 [x.name for x in dataclasses.fields(b)]
             assert dataclasses.asdict(a) == dataclasses.asdict(b)
@@ -112,13 +113,16 @@ def test_config_copy_matches_reference(which):
     _cfg_fields_equal(port, ref)
 
 
-def test_unported_arch_raises():
+def test_every_registry_arch_resolves():
+    from repro.configs.registry import ARCHS as JARCHS
+    assert sorted(ARCHS) == sorted(JARCHS) and len(ARCHS) == 11
+    for name in JARCHS:
+        assert get_arch(name).family == jax_get_arch(name).family
     assert get_arch("smollm-135m") is SMOLLM_135M
     assert get_arch("mamba2-130m") is MAMBA2_130M
-    assert get_arch("recurrentgemma-2b").family == "hybrid"
-    assert get_arch("whisper-base").family == "audio"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_arch("internvl2-76b")
+    assert get_arch("internvl2-76b").family == "vlm"
+    with pytest.raises(NotImplementedError, match="not in the registry"):
+        get_arch("no-such-arch")
 
 
 def test_population_copy_matches_reference():
@@ -183,7 +187,7 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    for pkg in ("sim", "checkpoint"):
+    for pkg in ("sim", "checkpoint", "examples"):
         assert REPO / "src" / "repro_torch" / pkg / "__init__.py" in files
     for path in files:
         text = path.read_text()
