@@ -158,7 +158,25 @@
    ZiCo scores at rtol 1e-3, the evolutionary search's choice equal), and
    the quickstart example's ``main`` on the card: its round against the
    same round with ``use_kernel=False`` and on the CPU, and its aggregation
-   launches counted exactly.
+   launches counted exactly.  Then the sharded FL server (``mesh_path``):
+   a 1 x 1 mesh over NCCL in this process aggregates a fixed full-size
+   smollm-135m cohort (m = 8 seeded rows) twice through the mesh code,
+   with the unsharded aggregation's launches by shape, its collectives
+   counted exactly, and its global bit-equal wherever the unsharded
+   aggregation is bit-equal to itself (``hist_level`` adds its blocks'
+   f32 sums with atomics) and within 8 ulp of the sums' magnitude
+   everywhere; then a 2 x 2 mesh of 4 spawned processes on the card
+   (gloo, each on cuda:0) aggregates a seeded m = 7 cohort (one pad row)
+   at f32 and int8, runs 2 resident rounds at m = 8 and one int8 async
+   merge (parity mode), and writes a checkpoint from the model-sharded
+   global and restores it bit-equal; each rank's launches by shape
+   (``scaled_accum`` 2 on (4, 67,257,856), ``hist_level`` 4 levels of
+   each 37-segment group holding its columns, no ``quantile_fused``) and
+   collectives (one all-gather a round, 2 N/M all-reduces over ``data``,
+   4 histogram all-reduces over ``model``) are checked exactly; then this
+   process holds it against the unsharded runs: thresholds and int8
+   scales bit-equal, Σx² at rtol 1e-5, the globals within 8 ulp of the
+   sums' magnitude, the rounds and the merge through ``round_close``.
 9. Holds each kernel against its plain PyTorch version at the main path's
    shapes (weighted sums within 1e-5 of the summed magnitudes; thresholds
    bit-equal; trimmed sums of squares at rtol 1e-5; the SSD's y and state
@@ -1884,8 +1902,9 @@ def trimmed_norm_path(kernels, g: torch.Tensor) -> dict:
     return {"norm": float(norm), "launches": launches}
 
 
-def model_index(arch: str = "smollm-135m"):
-    """The FlatIndex of full-size ``arch``, from shapes alone."""
+def model_index(arch: str = "smollm-135m", pad_to: int = 1):
+    """The FlatIndex of full-size ``arch``, from shapes alone (N padded to
+    a multiple of ``pad_to``)."""
     from repro_torch.core import flat
     from repro_torch.launch import train
     from repro_torch.models.transformer import _is_shape, param_shapes
@@ -1894,7 +1913,7 @@ def model_index(arch: str = "smollm-135m"):
     leaves = list(leaves_with_path(param_shapes(cfg), is_leaf=_is_shape))
     return flat.FlatIndex(from_paths(
         [p for p, _ in leaves],
-        [torch.empty(s, device="meta") for _, s in leaves]))
+        [torch.empty(s, device="meta") for _, s in leaves]), pad_to=pad_to)
 
 
 def main_path_shapes(m: int, arch: str = "smollm-135m",
@@ -2899,6 +2918,649 @@ def flash_checks(launches: int) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sharded FL server (mesh_path)
+# ---------------------------------------------------------------------------
+
+MESH_AGG_M = 7         # the 2 x 2 aggregation's cohort: one pad row
+EPS32 = 2.0 ** -23
+
+
+def fl_round_data(cfg, device: str):
+    """``run_fl``'s rounds at the CLI defaults (16 clients, participation
+    0.5: m = 8, batch 8 x 64, 2 local steps, cls), as data_fn(r) -> (specs,
+    batches on ``device``); call it for r = 0, 1, ... in order."""
+    from repro_torch.core.server import make_client_specs, select_clients
+    from repro_torch.data import partition, pipeline, synthetic
+    from repro_torch.launch import train
+    parts = partition.iid_partition(16, 10, seed=0)
+    specs = make_client_specs(cfg, 16,
+                              archs=train.client_arch_pool(cfg, "width"),
+                              seed=0)
+    profiles = synthetic.make_class_profiles(10, cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(0)
+
+    def data_fn(r):
+        sel = select_clients(16, 0.5, rng)
+        b = pipeline.round_batches_cls(
+            parts, sel, 10, cfg.vocab_size, local_steps=2, batch=8,
+            seq_len=64, profiles=profiles, seed=r)
+        return [specs[i] for i in sel], {
+            k: torch.as_tensor(v, dtype=torch.int64, device=device)
+            for k, v in b.items()}
+    return data_fn
+
+
+def agg_specs(cfg, m: int):
+    """The aggregation phases' cohort: m clients of the width pool, one an
+    attacker (full width)."""
+    from repro_torch.core.server import make_client_specs
+    from repro_torch.launch import train
+    return make_client_specs(cfg, m,
+                             archs=train.client_arch_pool(cfg, "width"),
+                             malicious_frac=1.0 / m, seed=0)
+
+
+def cohort_row(index, i: int) -> torch.Tensor:
+    """Client row i of the aggregation phases, drawn on the card from seed
+    1000 + i (the same bits in every process), zero on the inert tail."""
+    gen = torch.Generator("cuda").manual_seed(1000 + i)
+    row = torch.zeros(index.n_padded, device="cuda")
+    row[:index.n] = 0.02 * torch.randn(index.n, generator=gen, device="cuda")
+    return row
+
+
+def cohort_global(index) -> torch.Tensor:
+    gen = torch.Generator("cuda").manual_seed(999)
+    g = torch.zeros(index.n_padded, device="cuda")
+    g[:index.n] = 0.02 * torch.randn(index.n, generator=gen, device="cuda")
+    return g
+
+
+def hist_groups_expected(index, cols: slice, m: int) -> dict:
+    """``hist_level``'s launches by (rows, columns, shift) in one 2-D norms
+    pass over the columns ``cols``, from the layout alone: segments in
+    groups of 37 by id, one launch a level for each group with columns
+    here."""
+    from repro_torch.core import flat
+    _, seg_len, _ = flat._segment_maps(index)
+    start = np.concatenate([[0], np.cumsum(seg_len.astype(np.int64))])
+    S = len(seg_len)
+    want = collections.Counter()
+    for g0 in range(0, S, 37):
+        a = max(int(start[g0]), cols.start)
+        b = min(int(start[min(g0 + 37, S)]), cols.stop)
+        if b > a:
+            for shift in (24, 16, 8, 0):
+                want[(m, b - a, shift)] += 1
+    return dict(want)
+
+
+def mesh_counts(mesh) -> dict:
+    return {f"{k} {a} {n}": c for (k, a, n), c in sorted(mesh.counts.items())}
+
+
+def agg_counts_expected(n_cols: int, rows: int, S: int) -> dict:
+    """The 2-D aggregation's collectives (f32 and quantized alike): one N/M
+    all-reduce over ``data`` for each of M' and Γ, the α mean's (S + 1)
+    sums, and one histogram all-reduce over ``model`` a level (count and
+    Σx² planes in f64); no all-gather, no reduce-scatter."""
+    return {f"all_reduce data {n_cols}": 2, f"all_reduce data {S + 1}": 1,
+            f"all_reduce model {2 * rows * 2 * S * 256}": 4}
+
+
+def mesh_one_rank(kernels, tmp: str) -> dict:
+    """(a) A 1 x 1 mesh over NCCL in this process: two rounds' aggregation
+    of a fixed full-size smollm-135m cohort (m = 8 seeded rows; no
+    training, whose embedding backward is not bit-stable) through the mesh
+    code, against the unsharded aggregation from the same global; the
+    same launches by shape; the norms pass's thresholds bit-equal; the
+    global bit-equal wherever the unsharded aggregation is bit-equal to
+    itself (``hist_level`` sums its blocks' Σx² planes with f32 atomics,
+    whose order may vary), and within 8 ulp of the sums' magnitude
+    everywhere."""
+    import torch.distributed as dist
+    from repro_torch.core import flat
+    from repro_torch.core.fedfa import STRATEGIES
+    from repro_torch.core.server import stack_runtimes
+    from repro_torch.launch.mesh import get_mesh
+    from repro_torch.launch import train
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl1",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = get_mesh("1x1", "cuda")
+        check(mesh.backend == "nccl", f"1 x 1 mesh backend {mesh.backend}")
+        cfg = train.fl_config("smollm-135m", "cls", 10, full_size=True)
+        index = model_index()
+        specs = agg_specs(cfg, 8)
+        masks, gates, gmaps, nd, _, _ = stack_runtimes(cfg, specs, "cuda")
+        kw = dict(STRATEGIES["fedfa"], trim=0.95)
+        g = cohort_global(index)
+        rounds = []
+        for rnd in range(2):
+            x = torch.stack([cohort_row(index, 8 * rnd + i) for i in range(8)])
+
+            def agg(gl, xs, **extra):
+                for k in kernels:
+                    k.reset()
+                out = flat.aggregate_buffers(index, gl, xs, cfg, masks, gates,
+                                             gmaps, nd, **kw, **extra)
+                torch.cuda.synchronize()
+                return out, {k.symbol: dict(k.by_shape) for k in kernels
+                             if k.launches}
+            mesh.counts.clear()
+            g_mesh, by_mesh = agg(g, x, mesh=mesh)
+            counts = mesh_counts(mesh)
+            g_one, by_one = agg(g, x)
+            g_again, _ = agg(g, x)
+            scale, _ = agg(torch.zeros_like(g), x.abs())
+            # the norms pass's thresholds come from exact counts: bit-equal
+            cols = flat.pool_cols(index, mesh, None)
+            dens, fracs = flat._density_rows(cfg, index, masks, cols, "cuda")
+            xm = flat._graft_flat(index, x, gmaps)[:, cols].mul_(dens)
+            del x, dens
+            t_mesh, _ = flat._cohort_stats(
+                index, xm, fracs, 0.95, None, None, mesh,
+                cols if flat.two_d(index, mesh, None) else None)
+            t_one, _ = flat._cohort_stats(index, xm, fracs, 0.95)
+            del xm
+            check(torch.equal(t_mesh, t_one), f"1 x 1 mesh round {rnd}: "
+                  f"thresholds not bit-equal to the unsharded pass")
+            err = (g_mesh - g_one).abs()
+            within = bool((err <= 8 * EPS32 * scale).all())
+            differ, self_differ = int((g_mesh != g_one).sum()), \
+                int((g_again != g_one).sum())
+            check(by_mesh == by_one, f"1 x 1 mesh launches {by_mesh} != "
+                  f"unsharded {by_one}")
+            check(counts == {f"all_reduce data {index.n_padded}": 2,
+                             f"all_reduce data {index.n_segments + 1}": 1},
+                  f"1 x 1 mesh collectives {counts}")
+            check(within and (self_differ > 0 or differ == 0),
+                  f"1 x 1 mesh round {rnd}: {differ} elements differ from "
+                  f"the unsharded aggregation (which differs from itself in "
+                  f"{self_differ}), largest {float(err.max()):.3g}")
+            rounds.append({"bit_equal": differ == 0, "thresholds_bit_equal":
+                           True, "elements_differing":
+                           differ, "unsharded_self_differing": self_differ,
+                           "max_abs_diff": float(err.max()),
+                           "launches_by_shape": json_ready(by_mesh),
+                           "collectives": counts})
+            g = g_one      # round 2 from the unsharded round's global
+            del g_mesh, g_again, scale, err
+        return {"mesh": "1x1", "backend": mesh.backend, "rounds": rounds}
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank(rank: int, tmp: str) -> None:
+    """(b) One rank of the 2 x 2 mesh, spawned with three others on the
+    one card (gloo: NCCL refuses two ranks on one device).  Saves its
+    report and what the parent compares under ``tmp``."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/gloo",
+                            rank=rank, world_size=4,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        _mesh_rank(rank, tmp)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_rank(rank: int, tmp: str) -> None:
+    from repro_torch.core import flat
+    from repro_torch.core.async_round import AsyncConfig, AsyncEngine
+    from repro_torch.core.fedfa import STRATEGIES
+    from repro_torch.core.round import ResidentDriver, fresh_quant_state
+    from repro_torch.core.server import FLConfig, stack_runtimes
+    from repro_torch.checkpoint import checkpoint as ckpt_mod
+    from repro_torch.kernels.fedfa_agg.ops import QUANT_ACCUM, SCALED_ACCUM
+    from repro_torch.kernels.fedfa_quantile.multilevel import HIST_LEVEL
+    from repro_torch.kernels.fedfa_quantile.ops import QUANTILE_FUSED
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import get_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import cohort as csh
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sim import ParitySource
+    from repro_torch.tree import tree_map
+    kernels = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL, QUANT_ACCUM]
+    mesh = get_mesh("2x2", "cuda")
+    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=True)
+    index = model_index(pad_to=csh.pad_unit(mesh))
+    S, cols = index.n_segments, flat.pool_cols(index, mesh, None)
+    width = cols.stop - cols.start
+    out = {"rank": rank, "coord": mesh.coord, "backend": mesh.backend,
+           "device": torch.cuda.current_device(), "n_padded": index.n_padded}
+
+    def measure(fn):
+        for k in kernels:
+            k.reset()
+        mesh.counts.clear()
+        mesh.staged_bytes = 0
+        collect_garbage()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {"ms": (time.perf_counter() - t0) * 1e3,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches_by_shape": {
+                         k.symbol: {sh: n for sh, n in k.by_shape.items()}
+                         for k in kernels if k.launches},
+                     "collectives": mesh_counts(mesh),
+                     "staged_bytes": mesh.staged_bytes}
+
+    def keep(name, t):
+        """This rank's slice: its sha256, and the slice itself from the
+        ranks of data index 0 (the data peers hold the same bits)."""
+        t = t.contiguous()
+        out[name + "_sha256"] = hashlib.sha256(
+            t.cpu().numpy().tobytes()).hexdigest()
+        if mesh.coord[0] == 0:
+            torch.save(t.cpu(), f"{tmp}/{name}_{mesh.coord[1]}.pt")
+
+    # aggregation of a seeded m = 7 cohort (one pad row), f32 and int8
+    rows = csh.data_rows(mesh, MESH_AGG_M + 1)
+    specs = agg_specs(cfg, MESH_AGG_M)
+    runtimes, _ = csh.pad_cohort(stack_runtimes(cfg, specs, "cuda"), {}, 1)
+    masks, gates, gmaps, nd, _, _ = (csh.rows_of(t, rows) for t in runtimes)
+    x = torch.stack([cohort_row(index, i if i < MESH_AGG_M else 0)
+                     for i in range(rows.start, rows.stop)])
+    g = cohort_global(index)[csh.model_cols(mesh, index.n_padded)].clone()
+    kw = dict(STRATEGIES["fedfa"], trim=0.95, mesh=mesh)
+    # twice: the first call also loads the kernels and warms the groups
+    for _ in range(2):
+        g_new, out["aggregate_f32"] = measure(
+            lambda: flat.aggregate_buffers(index, g, x, cfg, masks, gates,
+                                           gmaps, nd, **kw))
+        out.setdefault("aggregate_f32_cold_ms", out["aggregate_f32"]["ms"])
+    keep("agg_f32", g_new)
+    dens, fracs = flat._density_rows(cfg, index, masks, cols, "cuda")
+    xm = flat._graft_flat(index, x, gmaps)[:, cols] * dens
+    del dens
+    t, ss = flat._cohort_stats(index, xm, fracs, 0.95, None, None, mesh,
+                               cols)
+    del xm
+    state = fresh_quant_state(index, rows.stop - rows.start, "int8", "cuda",
+                              width)
+    _, out["admit_int8"] = measure(lambda: flat.admit_quantized(
+        index, cfg, x, masks, gmaps, True, state, "int8", mesh, cols))
+    del x
+    g_new, out["aggregate_int8"] = measure(lambda: flat.aggregate_buffers(
+        index, g, state[0], cfg, masks, gates, gmaps, nd, scales=state[1],
+        pregrafted=True, **kw))
+    keep("agg_int8", g_new)
+    tq, ssq = flat._cohort_stats(index, state[0], fracs, 0.95, state[1],
+                                 None, mesh, cols)
+    torch.save({"t": t.cpu(), "ss": ss.cpu(), "tq": tq.cpu(),
+                "ssq": ssq.cpu(), "scales": state[1].cpu()},
+               f"{tmp}/stats_{rank}.pt")
+    del state, g_new, g
+
+    # the gloo collectives alone: an N/M f32 all-reduce over data, the
+    # global's all-gather over model
+    buf = torch.ones(width, device="cuda")
+    for name, fn in (("all_reduce_data_ms", lambda: coll.all_reduce(
+            buf, mesh, csh.DATA_AXIS)), ("all_gather_model_ms", lambda:
+            coll.all_gather(buf, mesh, csh.MODEL_AXIS))):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = times
+    del buf
+
+    # 2 resident rounds at m = 8 (the CLI defaults' cohort), f32
+    params = tree_map(lambda a: a.to("cuda"), init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    fl = FLConfig(participation=0.5, local_steps=2, lr=0.05,
+                  strategy="fedfa", task="cls")
+    driver = ResidentDriver(cfg, fl, index, "cuda", mesh)
+    g_buf = flat.flatten(index, params)[csh.model_cols(
+        mesh, index.n_padded)].clone()
+    data_fn = fl_round_data(cfg, "cuda")
+    out["rounds"] = []
+    for r in range(2):
+        specs_r, batches = data_fn(r)
+        loss, rep = measure(lambda: float(driver.round(g_buf, specs_r,
+                                                       batches)))
+        out["rounds"].append(dict(rep, loss=loss))
+    del driver
+    g_full = coll.gather_model(g_buf, mesh, index.n_padded)
+    if rank == 0:
+        torch.save(g_full.cpu(), f"{tmp}/rounds.pt")
+    # a checkpoint from the model-sharded global, restored onto it
+    t0 = time.perf_counter()
+    ckpt_mod.save_from_buffer(f"{tmp}/mesh_ckpt", index, g_buf,
+                              meta={"round": 1}, mesh=mesh)
+    t1 = time.perf_counter()
+    _, back, meta = ckpt_mod.restore_to_buffer(f"{tmp}/mesh_ckpt", params,
+                                               mesh=mesh)
+    out["checkpoint"] = {"restored_bit_equal": bool(torch.equal(back,
+                                                               g_buf)),
+                         "write_s": t1 - t0,
+                         "read_s": time.perf_counter() - t1,
+                         "meta": meta}
+    del back, g_full
+
+    # one async merge at int8 (parity mode: the 8 clients of round 0)
+    fl8 = FLConfig(participation=0.5, local_steps=2, lr=0.05,
+                   strategy="fedfa", task="cls", update_dtype="int8")
+    g_loc = flat.flatten(index, params)[csh.model_cols(
+        mesh, index.n_padded)].clone()
+    eng = AsyncEngine(g_loc, cfg, fl8, index,
+                      ParitySource(fl_round_data(cfg, "cuda")),
+                      acfg=AsyncConfig.parity(8), mesh=mesh)
+
+    def merge():
+        while eng.merges < 1:
+            loss = eng.step()
+        return loss
+    loss, rep = measure(merge)
+    out["async_int8"] = dict(rep, loss=loss)
+    g_full = coll.gather_model(eng.g_buf, mesh, index.n_padded)
+    if rank == 0:
+        torch.save(g_full.cpu(), f"{tmp}/async.pt")
+    torch.save(out, f"{tmp}/mesh_rank{rank}.pt")
+
+
+def mesh_two_by_two(tmp: str) -> list:
+    """Spawn the 4 ranks of the 2 x 2 mesh on the card and wait for them;
+    any rank's failure fails the run."""
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    ctx = mp.start_processes(mesh_rank, args=(tmp,), nprocs=4, join=False,
+                             start_method="spawn")
+    while not ctx.join(timeout=600):
+        pass
+    return [torch.load(f"{tmp}/mesh_rank{r}.pt") for r in range(4)]
+
+
+def mesh_references(ranks: list, tmp: str) -> dict:
+    """The 2 x 2 mesh against this process's unsharded runs of the same
+    work: thresholds bit-equal and Σx² at rtol 1e-5 (the shards sum the
+    planes in another order), the quantized scales bit-equal, the merged
+    globals within 8 ulp of the sums' magnitude; the rounds and the async
+    merge through ``round_close`` (f32: no admission step allowed)."""
+    from repro_torch.core import flat
+    from repro_torch.core.async_round import AsyncConfig, AsyncEngine
+    from repro_torch.core.fedfa import STRATEGIES
+    from repro_torch.core.round import fresh_quant_state, run_rounds
+    from repro_torch.core.server import FLConfig, stack_runtimes
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+    from repro_torch.sim import ParitySource
+    from repro_torch.tree import tree_map
+    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=True)
+    index = model_index()
+    n = index.n
+    report = {}
+    for o in ranks:         # data peers hold the same global bits
+        peer = next(p for p in ranks if p["coord"] == (1 - o["coord"][0],
+                                                       o["coord"][1]))
+        for key in ("agg_f32_sha256", "agg_int8_sha256"):
+            check(o[key] == peer[key], f"2 x 2: data peers' {key} differ")
+    specs = agg_specs(cfg, MESH_AGG_M)
+    masks, gates, gmaps, nd, _, _ = stack_runtimes(cfg, specs, "cuda")
+    x = torch.stack([cohort_row(index, i) for i in range(MESH_AGG_M)])
+    g = cohort_global(index)
+    kw = dict(STRATEGIES["fedfa"], trim=0.95)
+    dens, fracs = flat._density_rows(cfg, index, masks, slice(0, n), "cuda")
+    t, ss = flat._cohort_stats(index, flat._graft_flat(index, x, gmaps)
+                               * dens, fracs, 0.95)
+    del dens
+    state = fresh_quant_state(index, MESH_AGG_M, "int8", "cuda")
+    flat.admit_quantized(index, cfg, x, masks, gmaps, True, state, "int8")
+    tq, ssq = flat._cohort_stats(index, state[0], fracs, 0.95, state[1])
+    for o in ranks:
+        got = torch.load(f"{tmp}/stats_{o['rank']}.pt")
+        r0 = 4 * o["coord"][0]
+        k = min(4, MESH_AGG_M - r0)
+        for a, b, what in ((got["t"], t, "t"), (got["tq"], tq, "tq"),
+                           (got["scales"], state[1], "scales")):
+            check(torch.equal(a[:k], b[r0:r0 + k].cpu()),
+                  f"2 x 2 rank {o['rank']}: {what} not bit-equal")
+        for a, b, what in ((got["ss"], ss, "ss"), (got["ssq"], ssq, "ssq")):
+            check(torch.allclose(a[:k], b[r0:r0 + k].cpu(), rtol=1e-5,
+                                 atol=0), f"2 x 2 rank {o['rank']}: {what}")
+    for dt, xs, extra in (("f32", x, {}), ("int8", state[0], dict(
+            scales=state[1], pregrafted=True))):
+        want = flat.aggregate_buffers(index, g, xs, cfg, masks, gates, gmaps,
+                                      nd, **kw, **extra)
+        scale = flat.aggregate_buffers(index, torch.zeros_like(g), xs.abs(),
+                                       cfg, masks, gates, gmaps, nd, **kw,
+                                       **extra)
+        got = torch.cat([torch.load(f"{tmp}/agg_{dt}_{k}.pt")
+                         for k in range(2)]).cuda()
+        check(not got[n:].any(), f"2 x 2 {dt}: the inert tail moved")
+        err = (got[:n] - want).abs()
+        ratio = float((err / (8 * EPS32 * scale).clamp_min(1e-38)).max())
+        check(ratio <= 1.0, f"2 x 2 {dt} aggregation: {ratio:.3g} of the "
+              f"8-ulp bound")
+        report[f"aggregate_{dt}"] = {
+            "max_abs_diff": float(err.max()), "of_8ulp_bound": ratio,
+            "elements_differing": int((got[:n] != want).sum())}
+        del want, scale, got, err
+    del x, state
+    params = tree_map(lambda a: a.to("cuda"), init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    fl = FLConfig(participation=0.5, local_steps=2, lr=0.05,
+                  strategy="fedfa", task="cls")
+    p, losses = run_rounds(params, cfg, fl, 2, fl_round_data(cfg, "cuda"),
+                           eval_every=0)
+    want = flat.flatten(index, p).cpu().numpy()
+    got = torch.load(f"{tmp}/rounds.pt")[:n].numpy()
+    round_close(got, want, np.zeros_like(want), "2 x 2 resident rounds")
+    report["rounds"] = {"losses": [o["loss"] for o in ranks[0]["rounds"]],
+                        "unsharded_losses": losses,
+                        "max_abs_diff": float(np.abs(got - want).max())}
+    del p
+    fl8 = FLConfig(participation=0.5, local_steps=2, lr=0.05,
+                   strategy="fedfa", task="cls", update_dtype="int8")
+    eng = AsyncEngine(flat.flatten(index, params), cfg, fl8, index,
+                      ParitySource(fl_round_data(cfg, "cuda")),
+                      acfg=AsyncConfig.parity(8))
+    while eng.merges < 1:
+        eng.step()
+    want = eng.g_buf.cpu().numpy()
+    steps = eng._c_buf[1].amax(0)[torch.as_tensor(
+        index.row_of, device="cuda").long()].cpu().numpy()
+    got = torch.load(f"{tmp}/async.pt")[:n].numpy()
+    round_close(got, want, steps, "2 x 2 async int8 merge")
+    report["async_int8"] = {"max_abs_diff": float(np.abs(got - want).max())}
+    return report
+
+
+def mesh_kernel_rows(ranks: list) -> list:
+    """Kernels 1, 3 and 4 at the 2 x 2 mesh's shapes, timed on this card:
+    ``scaled_accum`` and ``quant_accum`` on a rank's (4, N/M) slice,
+    ``hist_level`` on the top level of rank 0's widest segment group; the
+    launches are rank 0's in one aggregation (f32, and int8 for 4)."""
+    from repro_torch.kernels.fedfa_agg import ops as agg_ops
+    from repro_torch.kernels.fedfa_agg import ref as agg_ref
+    from repro_torch.kernels.fedfa_quantile import multilevel
+    from repro_torch.kernels.fedfa_quantile import ref as q_ref
+    from repro_torch.core import flat
+    from repro_torch.sharding import cohort as csh
+    rank0 = next(o for o in ranks if o["rank"] == 0)
+    index = model_index(pad_to=2 * csh.TILE)
+    cols = slice(0, index.n_padded // 2)
+    m, w = 4, cols.stop - cols.start
+    gen = torch.Generator("cuda").manual_seed(5)
+    x = torch.randn((m, w), generator=gen, device="cuda")
+    wts = torch.rand(m, generator=gen, device="cuda")
+    ones = torch.ones(w, device="cuda")
+    rows, f32 = [], rank0["aggregate_f32"]["launches_by_shape"]
+    out = agg_ops.scaled_accum(x, wts, ones)
+    mag = agg_ref.scaled_accum_ref(x.abs(), wts.abs(), ones)
+    err = (out - agg_ref.scaled_accum_ref(x, wts, ones)).abs()
+    check(bool((err <= 1e-5 * mag).all()),
+          "scaled_accum (mesh slice) disagrees")
+    err = float(err.max())
+    del out, mag
+    ms = time_ms(lambda: agg_ops.scaled_accum(x, wts, ones), 10)
+    b, by = bound((m * w + m + 2 * w) * 4, 2 * m * w + w)
+    rows.append({"name": "scaled_accum", "dtype": "f32",
+                 "path": "2 x 2 mesh, a rank's (m/D, N/M) slice",
+                 "route": "cuda", "source": "src/repro_torch/csrc/scaled_accum.cu",
+                 "replaces": "src/repro/kernels/fedfa_agg/kernel.py:71",
+                 "shape": [m, w],
+                 "launches": f32["scaled_accum"].get((m, w), 0),
+                 "max_abs_err": err, "ms": ms,
+                 "plain_ms": time_ms(lambda: agg_ref.scaled_accum_ref(
+                     x, wts, ones), 3),
+                 "bound_ms": b, "bound_by": by,
+                 "library_ms": time_ms(lambda: torch.mv(x.t(), wts) * ones,
+                                       10)})
+    seg_id = flat._device_seg_id(index, "cuda")[cols]
+    groups = [gr for gr in multilevel.segment_groups(seg_id,
+                                                     index.n_segments)
+              if gr[3] > gr[2]]
+    g0, g1, c0, c1 = max(groups, key=lambda gr: gr[3] - gr[2])
+    xs = x[:, c0:c1].contiguous()
+    sg = (seg_id[c0:c1] - g0).to(torch.int32)
+    hi = torch.zeros((m, 2, g1 - g0), dtype=torch.int32, device="cuda")
+    cnt, sq = multilevel.hist_level(xs, sg, hi, 24)
+    rc, rs = q_ref.hist_level_ref(xs, sg, hi, 24)
+    check(torch.equal(cnt, rc), "hist_level (mesh group): counts differ")
+    check(torch.allclose(sq, rs, rtol=1e-5, atol=0),
+          "hist_level (mesh group): Σx² differ")
+    C, Sg = c1 - c0, g1 - g0
+    b, by = bound(m * C * 4 + (C + m * 2 * Sg) * 4 + m * 2 * Sg * 256 * 8,
+                  m * C)
+    rows.append({"name": "hist_level", "dtype": "f32",
+                 "path": f"2 x 2 mesh, rank 0's widest segment group "
+                         f"(S = {Sg}), top level",
+                 "route": "cuda", "source": "src/repro_torch/csrc/hist_level.cu",
+                 "replaces": "src/repro/kernels/fedfa_quantile/multilevel.py:107",
+                 "shape": [m, C], "level": 0,
+                 "launches": f32["hist_level"].get((m, C, 24), 0),
+                 "max_abs_err": float((sq - rs).abs().max()),
+                 "ms": time_ms(lambda: multilevel.hist_level(xs, sg, hi, 24),
+                               10),
+                 "plain_ms": time_ms(lambda: q_ref.hist_level_ref(
+                     xs, sg, hi, 24), 2),
+                 "bound_ms": b, "bound_by": by, "library_ms": None})
+    del xs
+    q = torch.randint(-127, 128, (m, w), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    wtab = torch.rand((m, index.n_segments), generator=gen, device="cuda")
+    seg32 = seg_id.contiguous()
+    out = agg_ops.quant_accum(q, wtab, seg32, ones)
+    mag = agg_ref.quant_accum_ref(q.abs(), wtab, seg32, ones)
+    err = (out - agg_ref.quant_accum_ref(q, wtab, seg32, ones)).abs()
+    check(bool((err <= 1e-5 * mag).all()),
+          "quant_accum (mesh slice) disagrees")
+    err = float(err.max())
+    del out, mag
+    b, by = bound(m * w + 12 * w + wtab.numel() * 4, 2 * m * w + w)
+    rows.append({"name": "quant_accum", "dtype": "int8",
+                 "path": "2 x 2 mesh, a rank's (m/D, N/M) slice",
+                 "route": "cuda", "source": "src/repro_torch/csrc/quant_accum.cu",
+                 "replaces": "src/repro/kernels/fedfa_agg/kernel.py:117",
+                 "shape": [m, w],
+                 "launches": rank0["aggregate_int8"]["launches_by_shape"]
+                 .get("quant_accum", {}).get((m, w), 0),
+                 "max_abs_err": err,
+                 "ms": time_ms(lambda: agg_ops.quant_accum(q, wtab, seg32,
+                                                           ones), 10),
+                 "plain_ms": time_ms(lambda: agg_ref.quant_accum_ref(
+                     q, wtab, seg32, ones), 3),
+                 "bound_ms": b, "bound_by": by, "library_ms": None})
+    return rows
+
+
+def mesh_path(kernels, card: str) -> tuple:
+    """The sharded FL server: (a) ``mesh_one_rank``; (b) the 2 x 2 mesh of
+    4 processes on the card, each rank's launches and collectives checked
+    exactly, then held against this process's unsharded runs
+    (``mesh_references``); the kernels at the mesh's shapes."""
+    from repro_torch.core import flat
+    from repro_torch.sharding import cohort as csh
+    # NCCL allocates outside PyTorch's caching allocator, so hand back what
+    # the earlier phases' cache holds first
+    collect_garbage()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"mesh_path: {free / 2**30:.1f} of {total / 2**30:.1f} GiB free")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        one = mesh_one_rank(kernels, tmp)
+        t1 = time.perf_counter()
+        ranks = mesh_two_by_two(tmp)
+        t2 = time.perf_counter()
+        index = model_index(pad_to=2 * csh.TILE)
+        S = index.n_segments
+        for o in ranks:
+            d, k = o["coord"]
+            check(o["backend"] == "gloo" and o["device"] == 0,
+                  f"rank {o['rank']}: {o['backend']} on cuda:{o['device']}")
+            cols = slice(k * index.n_padded // 2, (k + 1) * index.n_padded // 2)
+            w = cols.stop - cols.start
+            hist = hist_groups_expected(index, cols, 4)
+            agg = {"scaled_accum": {(4, w): 2}, "hist_level": hist}
+            aggq = {"scaled_accum": {(4, w): 1}, "quant_accum": {(4, w): 1},
+                    "hist_level": hist}
+            cc = agg_counts_expected(w, 4, S)
+            for key, want_l, want_c in (
+                    ("aggregate_f32", agg, cc), ("aggregate_int8", aggq, cc),
+                    ("admit_int8", {}, {f"all_reduce_max model {4 * S}": 2})):
+                got = o[key]
+                check(got["launches_by_shape"] == want_l,
+                      f"rank {o['rank']} {key}: launches "
+                      f"{got['launches_by_shape']}, expected {want_l}")
+                check(got["collectives"] == want_c,
+                      f"rank {o['rank']} {key}: collectives "
+                      f"{got['collectives']}, expected {want_c}")
+            for r, rep in enumerate(o["rounds"]):
+                want_c = dict(cc, **{f"all_gather model {w}": 1,
+                                     "all_reduce data 2": 1})
+                check(rep["launches_by_shape"] == agg
+                      and rep["collectives"] == want_c,
+                      f"rank {o['rank']} round {r}: {rep['launches_by_shape']}"
+                      f" {rep['collectives']}")
+            want_c = dict(cc, **{f"all_gather model {w}": 1,
+                                 "all_reduce data 2": 1,
+                                 f"all_reduce_max model {4 * S}": 2})
+            rep = o["async_int8"]
+            check(rep["launches_by_shape"] == aggq
+                  and rep["collectives"] == want_c,
+                  f"rank {o['rank']} async merge: {rep['launches_by_shape']} "
+                  f"{rep['collectives']}")
+            check(o["checkpoint"]["restored_bit_equal"],
+                  f"rank {o['rank']}: checkpoint not restored bit-equal")
+        ref = mesh_references(ranks, tmp)
+        t3 = time.perf_counter()
+    rows = mesh_kernel_rows(ranks)
+    report = {"one_rank_nccl": one,
+              "two_by_two": {"ranks": json_ready(ranks),
+                             "against_unsharded": ref},
+              "seconds": {"one_rank": t1 - t0, "two_by_two_ranks": t2 - t1,
+                          "references": t3 - t2,
+                          "phase": time.perf_counter() - t0},
+              "card": card}
+    return report, rows
+
+
+def json_ready(obj):
+    """``obj`` with every dict keyed by tuples (launches by shape) as a list
+    of [list(key), value] pairs."""
+    if isinstance(obj, dict):
+        if any(isinstance(k, tuple) for k in obj):
+            return [[list(k), json_ready(v)] for k, v in obj.items()]
+        return {k: json_ready(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [json_ready(v) for v in obj]
+    return obj
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -3111,12 +3773,16 @@ def main() -> int:
     print(json.dumps({"nas": nas_card_vs_cpu(), "card": card}), flush=True)
     print(json.dumps({"quickstart": quickstart_on_card(kernels),
                       "card": card}), flush=True)
+    # the sharded FL server: a 1 x 1 NCCL mesh in this process, then a
+    # 2 x 2 mesh of 4 processes on the card
+    mesh_report, mesh_rows = mesh_path(kernels, card)
+    print(json.dumps({"mesh_path": mesh_report}), flush=True)
     print(json.dumps({"kernels": kernel_checks(launches, shapes,
                                                quantile_calls)
                       + hist_checks(launches, shapes) + fl_rows + ssd_checks(
         launches["mamba2-130m@1024"]["ssd_intra_chunk"]) + flash_checks(
         launches["smollm-135m@4096"]["flash_attention"]) + [phi_row]
-        + rg_rows + audio_rows + vlm_rows}),
+        + rg_rows + audio_rows + vlm_rows + mesh_rows}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

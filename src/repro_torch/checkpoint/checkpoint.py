@@ -52,25 +52,40 @@ def save(path: str, tree: Any, meta: Dict[str, Any] | None = None) -> None:
 
 
 def save_from_buffer(path: str, index, buf: torch.Tensor,
-                     meta: Dict[str, Any] | None = None) -> None:
-    """Checkpoint a resident (N,) f32 buffer (``repro_torch.core.round``),
+                     meta: Dict[str, Any] | None = None, mesh=None) -> None:
+    """Checkpoint a resident f32 buffer (``repro_torch.core.round``),
     unflattened to the original leaf dtypes with ``index`` (the buffer's
-    ``flat.FlatIndex``); ``flat_n`` joins the meta.  The files equal those
-    of ``save`` on the equivalent tree."""
+    ``flat.FlatIndex``; the inert tail is dropped); ``flat_n`` joins the
+    meta.  The files equal those of ``save`` on the equivalent tree.
+
+    With ``mesh`` every rank calls this: a model-sharded buffer (a rank's
+    P("model") slice) is gathered over ``model``, rank 0 writes, and no
+    rank returns before the files exist."""
     from repro_torch.core import flat
-    save(path, flat.unflatten(index, buf),
-         meta=dict(meta or {}, flat_n=int(index.n)))
+    from repro_torch.sharding import collectives as coll
+    buf = coll.gather_model(buf, mesh, index.n_padded)
+    if mesh is None or mesh.rank == 0:
+        save(path, flat.unflatten(index, buf),
+             meta=dict(meta or {}, flat_n=int(index.n)))
+    if mesh is not None:
+        torch.distributed.barrier()
 
 
-def restore_to_buffer(path: str, like: Any
+def restore_to_buffer(path: str, like: Any, mesh=None
                       ) -> Tuple[Any, torch.Tensor, Dict[str, Any]]:
     """Restore a checkpoint straight into the resident flat representation:
-    (FlatIndex, (N,) f32 buffer on ``like``'s device, meta), ready for
-    ``run_rounds``."""
+    (FlatIndex, f32 buffer on ``like``'s device, meta), ready for
+    ``run_rounds``.  With ``mesh`` the index pads N with
+    ``sharding.cohort.pad_unit`` and the buffer is this rank's P("model")
+    slice."""
     from repro_torch.core import flat
+    from repro_torch.sharding import cohort as csh
     tree, meta = restore(path, like)
-    index = flat.FlatIndex(tree)
-    return index, flat.flatten(index, tree), meta
+    index = flat.FlatIndex(tree, pad_to=csh.pad_unit(mesh))
+    buf = flat.flatten(index, tree)
+    if mesh is not None:
+        buf = buf[csh.model_cols(mesh, index.n_padded)].clone()
+    return index, buf, meta
 
 
 def restore(path: str, like: Any) -> Tuple[Any, Dict[str, Any]]:

@@ -41,6 +41,14 @@ deterministic event loop over (dispatch, arrival, deadline) events, and
 its host state (clock, arrivals, weights) is numpy float64, so a (seed,
 trace) pair replays exactly.  Attackers' label permutations come from
 ``perm_fn(dispatch_idx, b, n)``.
+
+With a mesh (``launch.mesh``) every rank runs the same event loop on the
+same host state; the pool is padded with inert rows to a multiple of the
+data shards and each rank keeps its rows of it on its ``flat.pool_cols``
+((rows/D, N/M) where the aggregation runs 2-D).  A rank trains the
+dispatched clients whose slots it holds, grafts their whole rows and keeps
+its columns; the rows' losses are all-reduced over ``data``; and the merge
+runs ``pregrafted``, 2-D from end to end.
 """
 from __future__ import annotations
 
@@ -57,6 +65,8 @@ from repro_torch.core.fedfa import STRATEGIES
 from repro_torch.core.server import (ClientSpec, FLConfig, cohort_update,
                                      default_class_masks, stack_runtimes)
 from repro_torch.models.masks import full_client
+from repro_torch.sharding import cohort as csh
+from repro_torch.sharding import collectives as coll
 
 Params = Dict[str, Any]
 
@@ -164,7 +174,10 @@ class AsyncEngine:
 
     ``on_merge`` (optional) receives a host-side snapshot dict per merge
     ({"x", "w", "specs", "g_before", "g_after", "loss", "pregrafted"},
-    rows aligned).
+    rows aligned); not with a mesh, where no rank holds the pool.
+
+    With ``mesh``, ``g_buf`` is this rank's ``sharding.cohort.model_cols``
+    slice of the global.
     """
 
     def __init__(self, g_buf: torch.Tensor, cfg: ArchConfig, fl: FLConfig,
@@ -172,12 +185,18 @@ class AsyncEngine:
                  acfg: AsyncConfig,
                  perm_fn: Optional[Callable[[int, int, int],
                                             torch.Tensor]] = None,
-                 on_merge: Optional[Callable[[dict], None]] = None):
-        self.cfg, self.fl, self.index = cfg, fl, index
+                 on_merge: Optional[Callable[[dict], None]] = None,
+                 mesh=None):
+        if mesh is not None and on_merge is not None:
+            raise ValueError("on_merge snapshots the whole pool, which no "
+                             "rank of a mesh holds")
+        self.cfg, self.fl, self.index, self.mesh = cfg, fl, index, mesh
         self.source, self.acfg, self.on_merge = source, acfg, on_merge
         self.perm_fn = perm_fn or round_mod.default_perms(fl.seed)
         self.device = g_buf.device
-        self.rows = acfg.capacity
+        self.rows = acfg.capacity + csh.pad_rows(acfg.capacity, mesh)
+        self._here = csh.data_rows(mesh, self.rows)     # this rank's rows
+        self._cols = flat.pool_cols(index, mesh, fl.use_kernel)
         self.pool = SlotPool(acfg.capacity, self.rows)
         self.g_buf = g_buf
         # f32: one (rows, N) pool; a quantized admission dtype: the state
@@ -257,16 +276,19 @@ class AsyncEngine:
     # -- device work -------------------------------------------------------
 
     def _ensure_cbuf(self) -> None:
-        """Allocate the zeroed pool on first use: a free or unarrived row
-        is read by every merge with weight 0, and 0 · NaN is NaN."""
+        """Allocate the zeroed pool (this rank's rows and columns of it) on
+        first use: a free or unarrived row is read by every merge with
+        weight 0, and 0 · NaN is NaN."""
         if self._c_buf is not None:
             return
+        r = self._here.stop - self._here.start
+        width = self._cols.stop - self._cols.start
         if self._qmode:
             self._c_buf = round_mod.fresh_quant_state(
-                self.index, self.rows, self.fl.update_dtype, self.device)
+                self.index, r, self.fl.update_dtype, self.device, width)
         else:
-            self._c_buf = torch.zeros((self.rows, self.index.n),
-                                      dtype=torch.float32, device=self.device)
+            self._c_buf = torch.zeros((r, width), dtype=torch.float32,
+                                      device=self.device)
 
     def _pool_x(self) -> np.ndarray:
         """Host f32 copy of the pool rows for ``on_merge`` snapshots,
@@ -285,49 +307,77 @@ class AsyncEngine:
 
     def _materialize(self) -> None:
         """Train the pending dispatch group (if any) against the current
-        global and write it into its slots."""
+        global and write it into its slots (a rank: those it holds)."""
         if self._pending is None:
             return
         slots, specs, batches, d = self._pending
         self._pending = None
+        perms = self._perms(d, specs, batches)
+        here = [i for i, s in enumerate(slots)
+                if self._here.start <= s < self._here.stop]
+        losses = torch.zeros(self.rows, dtype=torch.float32,
+                             device=self.device)
+        if here:
+            pick = torch.as_tensor(here, dtype=torch.int64,
+                                   device=self.device)
+            got = self._admit(
+                np.asarray(slots)[here] - self._here.start,
+                [specs[i] for i in here],
+                {k: v.index_select(0, pick) for k, v in batches.items()},
+                None if perms is None else perms.index_select(0, pick))
+            losses[torch.as_tensor(np.asarray(slots)[here],
+                                   device=self.device)] = got
+        if self.mesh is not None:     # every row's loss, on every rank
+            coll.all_reduce(losses, self.mesh, csh.DATA_AXIS)
+        self.pool.loss[slots] = losses.cpu().numpy()[slots]
+
+    def _admit(self, rows: np.ndarray, specs, batches,
+               perms: Optional[torch.Tensor]) -> torch.Tensor:
+        """Train ``specs`` against the current global and write them into
+        this rank's pool ``rows``; returns their losses."""
         b = len(specs)
         masks, gates, gmaps, _nd, cms, mal = \
             stack_runtimes(self.cfg, specs, self.device)
-        perms = self._perms(d, specs, batches)
         self._ensure_cbuf()
-        x = torch.empty((b, self.index.n), dtype=torch.float32,
+        x = torch.empty((b, self.index.n_padded), dtype=torch.float32,
                         device=self.device)
+        g = flat.unflatten(self.index, coll.gather_model(
+            self.g_buf, self.mesh, self.index.n_padded))
         losses = cohort_update(
-            flat.unflatten(self.index, self.g_buf), self.cfg, self.fl,
-            self.index, masks, gates, batches,
+            g, self.cfg, self.fl, self.index, masks, gates, batches,
             default_class_masks(cms, self.cfg, self.fl, b, self.device),
             mal, perms, x)
-        idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
+        del g
+        idx = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
         if self._qmode:
             # the slots' pieces (copies), admitted into, written back
             state = tuple(t.index_select(0, idx) for t in self._c_buf)
             flat.admit_quantized(self.index, self.cfg, x, masks, gmaps,
-                                 self._graft, state, self.fl.update_dtype)
+                                 self._graft, state, self.fl.update_dtype,
+                                 self.mesh, self._cols)
             for t, s in zip(self._c_buf, state):
                 t.index_copy_(0, idx, s)
         else:
-            # f32 rows are grafted here, so the merge runs pregrafted
+            # f32 rows are grafted here, whole, so the merge runs
+            # pregrafted
             if self._graft:
                 x = flat._graft_flat(self.index, x, gmaps)
-            self._c_buf.index_copy_(0, idx, x)
-        self.pool.loss[slots] = losses.cpu().numpy()
+            self._c_buf.index_copy_(0, idx, x[:, self._cols].contiguous())
+        return losses
 
     def aggregate(self, w: np.ndarray, slot_specs: Sequence[ClientSpec]
                   ) -> torch.Tensor:
         """A merge's device work: ``flat.aggregate_buffers`` over the whole
-        pool with the (rows,) weights ``w`` and the rows' specs; returns the
-        new global and leaves the pool and ``g_buf`` as they were."""
+        pool with the (rows,) weights ``w`` and the rows' specs (a rank:
+        over its rows); returns the new global (a rank: its slice) and
+        leaves the pool and ``g_buf`` as they were."""
+        specs_here = slot_specs[self._here]
         masks, gates, gmaps, _nd, _cms, _mal = \
-            stack_runtimes(self.cfg, slot_specs, self.device)
+            stack_runtimes(self.cfg, specs_here, self.device)
         self._ensure_cbuf()
-        wt = torch.as_tensor(w, device=self.device)
+        wt = torch.as_tensor(w[self._here], device=self.device)
         kw = dict(trim=self.fl.trim, pregrafted=True,
-                  use_kernel=self.fl.use_kernel,
+                  use_kernel=self.fl.use_kernel, mesh=self.mesh,
                   **STRATEGIES[self.fl.strategy])
         if self._qmode:
             return flat.aggregate_buffers(
@@ -389,16 +439,20 @@ class AsyncEngine:
         self._ensure_cbuf()
         perms = self._perms(d, specs, batches)
         runtimes = stack_runtimes(self.cfg, specs, self.device)
-        if self._qmode:   # the pool's quantized state is the round's
-            c_buf = torch.empty((len(specs), self.index.n),
-                                dtype=torch.float32, device=self.device)
-            lossf = float(round_mod.flat_round(
-                self.g_buf, c_buf, self.cfg, self.fl, self.index, runtimes,
-                batches, perms, self._c_buf))
-        else:             # the round trains into the pool rows
-            lossf = float(round_mod.flat_round(
-                self.g_buf, self._c_buf, self.cfg, self.fl, self.index,
-                runtimes, batches, perms))
+        whole = self._cols.stop - self._cols.start == self.index.n_padded
+        # the round trains into the pool rows where they are whole rows,
+        # else into whole-row scratch whose columns the pool then keeps;
+        # in quantized mode the pool's quantized state is the round's
+        c_buf = self._c_buf if whole and not self._qmode else torch.empty(
+            (self._here.stop - self._here.start, self.index.n_padded),
+            dtype=torch.float32, device=self.device)
+        lossf = float(round_mod.flat_round(
+            self.g_buf, c_buf, self.cfg, self.fl, self.index, runtimes,
+            batches, perms, self._c_buf if self._qmode else None,
+            mesh=self.mesh))
+        if not self._qmode and c_buf is not self._c_buf:
+            self._c_buf.copy_(c_buf[:, self._cols])
+        del c_buf
         if self.on_merge:
             w = np.zeros(self.rows, np.float32)
             w[np.asarray(slots)] = [float(s.n_data) for s in specs]
@@ -427,8 +481,8 @@ def run_async(global_params: Params, cfg: ArchConfig, fl: FLConfig,
               ckpt_path: Optional[str] = None,
               on_merge: Optional[Callable[[dict], None]] = None,
               perm_fn: Optional[Callable[[int, int, int],
-                                         torch.Tensor]] = None
-              ) -> Tuple[Params, List[float]]:
+                                         torch.Tensor]] = None,
+              mesh=None) -> Tuple[Params, List[float]]:
     """Drive the async engine on the device of ``global_params`` until
     ``merges`` merges completed.
 
@@ -439,15 +493,22 @@ def run_async(global_params: Params, cfg: ArchConfig, fl: FLConfig,
     (``f"{ckpt_path}_m{r:05d}"``) fire at the ``round.eval_boundary``
     merge indices.  Returns (final params, per-merge mean losses over the
     rows merged).  ``merges <= 0`` returns the input untouched.
+
+    With ``mesh`` every rank calls this with the same arguments (see
+    ``AsyncEngine``); the global is gathered at eval boundaries and rank 0
+    writes the checkpoints.
     """
     if merges <= 0:
         return global_params, []
     acfg = acfg or AsyncConfig()
-    index = flat.FlatIndex(global_params)
+    index = flat.FlatIndex(global_params, pad_to=csh.pad_unit(mesh))
     g_buf = flat.flatten(index, global_params)
+    if mesh is not None:
+        g_buf = g_buf[csh.model_cols(mesh, index.n_padded)].clone()
     eng = AsyncEngine(g_buf, cfg, fl, index, source, acfg=acfg,
-                      perm_fn=perm_fn, on_merge=on_merge)
+                      perm_fn=perm_fn, on_merge=on_merge, mesh=mesh)
     losses: List[float] = []
+    g_full = g_buf      # gathered at each eval boundary, the last merge's too
     # a bound on non-merging steps (starvation already raises inside
     # step(); this catches policy livelocks)
     max_steps = (merges + 1) * (acfg.max_retries + 16 * (eng.rows + 2))
@@ -464,12 +525,13 @@ def run_async(global_params: Params, cfg: ArchConfig, fl: FLConfig,
         r = eng.merges - 1
         losses.append(loss)
         if round_mod.eval_boundary(r, merges, eval_every):
+            g_full = coll.gather_model(eng.g_buf, mesh, index.n_padded)
             if eval_fn is not None:
-                eval_fn(r, loss, flat.unflatten(index, eng.g_buf))
+                eval_fn(r, loss, flat.unflatten(index, g_full))
             if ckpt_path is not None:
                 from repro_torch.checkpoint import checkpoint as ckpt_mod
                 ckpt_mod.save_from_buffer(
-                    f"{ckpt_path}_m{r:05d}", index, eng.g_buf,
+                    f"{ckpt_path}_m{r:05d}", index, g_full,
                     meta={"merge": r, "strategy": fl.strategy,
-                          "sim_time": eng.now})
-    return flat.unflatten(index, eng.g_buf), losses
+                          "sim_time": eng.now}, mesh=mesh)
+    return flat.unflatten(index, g_full), losses

@@ -18,13 +18,19 @@ bf16) stores the cohort in its admission dtype; every consumer dequantizes
 as it reads (``quant_accum`` for M', the quantile kernels' scale inputs for
 the norms), so no f32 copy of the quantized rows is made.
 
-Single device; the mesh and padding paths of ``repro.core.flat`` are not
-yet ported.
+With a mesh (``launch.mesh``, laid out by ``sharding.cohort``) each rank
+holds its rows of the cohort, and the parameter axis is padded by
+``FlatIndex(pad_to=)`` with an inert zero tail.  With model shards and the
+kernel route the aggregation runs 2-D: densities, the distributed
+trimmed-norm pass (``segmented_trimmed_stats`` with histogram planes
+all-reduced over ``model``) and both (M', γ) sums take the rank's
+(m/D, N/M) slice, and each sum ends in one N/M all-reduce over ``data``.
 """
 from __future__ import annotations
 
+import bisect
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,8 +39,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.masking import (active_fraction, axis_mask_tree,
                                       mask_density)
 from repro_torch.kernels.fedfa_agg import ops as agg_ops
+from repro_torch.kernels.fedfa_quantile import multilevel as quant_ml
 from repro_torch.kernels.fedfa_quantile import ops as quant_ops
 from repro_torch.models.masks import WidthMasks
+from repro_torch.sharding import cohort as csh
+from repro_torch.sharding import collectives as coll
 from repro_torch.tree import from_paths, leaves, leaves_with_path
 
 Params = Dict[str, Any]
@@ -72,9 +81,17 @@ class FlatIndex:
     one per unstacked leaf — the granularity at which trimmed norms, scaling
     factors and depth gates vary.  Leaf order is ``jax.tree_util`` flatten
     order, so an (N,) buffer is byte-identical to the JAX package's.
+
+    ``pad_to`` rounds the flat length up to a multiple of it
+    (``n_padded``; ``sharding.cohort.pad_unit`` for a mesh), so that the
+    (N,) axis divides evenly over ``model``.  The tail [n, n_padded) is
+    inert: zeros in every buffer, density 0 (so the γ = 0 rule keeps the
+    merged global at zero there), segment id −1 and an identity graft, and
+    no ``LeafSpec`` covers it, so no norm or α sees it.  Leaf offsets do
+    not depend on the padding.
     """
 
-    def __init__(self, params: Params):
+    def __init__(self, params: Params, pad_to: int = 1):
         specs, row_of, seg_row, seg_stage0 = [], [], [], []
         off = seg = 0
         for path, x in leaves_with_path(params):
@@ -94,20 +111,66 @@ class FlatIndex:
         self.leaves = tuple(specs)
         self.n = off
         self.n_segments = seg
+        self.n_padded = off + (-off) % max(int(pad_to), 1)
+        # the tail's row_of is 0 so that weight gathers stay in bounds; the
+        # segment map marks it −1 (``_segment_maps``)
+        row_of.append(np.zeros(self.n_padded - off, np.int32))
         self.row_of = np.concatenate(row_of)
         self.seg_row = np.asarray(seg_row, np.int32)
         self.seg_stage0 = np.asarray(seg_stage0)
 
 
 def _segment_maps(index: FlatIndex):
-    """(seg_id (N,) int32, seg_len (S,), leaf_of_seg (S,)): the per-position
-    segment map of the segmented quantile (no inert tail on one device)."""
+    """(seg_id (n_padded,) int32, seg_len (S,), leaf_of_seg (S,)): the
+    per-position segment map of the segmented quantile, −1 on the inert
+    tail."""
     seg_len = np.zeros(index.n_segments, np.int32)
     leaf_of = np.zeros(index.n_segments, np.int32)
     for li, spec in enumerate(index.leaves):
         seg_len[spec.seg0:spec.seg0 + spec.lead] = spec.rest
         leaf_of[spec.seg0:spec.seg0 + spec.lead] = li
-    return index.row_of.astype(np.int32), seg_len, leaf_of
+    seg_id = index.row_of.astype(np.int32)
+    seg_id[index.n:] = -1
+    return seg_id, seg_len, leaf_of
+
+
+def _pieces(index: FlatIndex, cols: slice) -> List[Tuple[int, int, int,
+                                                         int, int]]:
+    """The columns ``cols`` of the layout cut into pieces of whole segment
+    rows: (s0, k, rest, a, b) says that local columns [a, b) are k
+    segments s0.. of ``rest`` columns each.  A leaf whose rows all lie in
+    ``cols`` is one piece; a row cut by an edge of ``cols`` is a piece of
+    its own (k = 1, rest its columns there).  The inert tail lies in
+    none."""
+    lo, hi = cols.start, cols.stop
+    out = []
+    for spec in index.leaves:
+        a, b = max(spec.offset, lo), min(spec.offset + spec.size, hi)
+        if a >= b:
+            continue
+        rest = spec.rest
+        j0, j1 = (a - spec.offset) // rest, (b - spec.offset - 1) // rest
+        start = spec.offset + j0 * rest
+        if a > start or j0 == j1:            # a cut (or lone) first row
+            e = min(b, start + rest)
+            out.append((spec.seg0 + j0, 1, e - a, a - lo, e - lo))
+            a, j0 = e, j0 + 1
+        if a >= b:
+            continue
+        full = (b - spec.offset) // rest      # rows that end inside cols
+        if full > j0:
+            e = spec.offset + full * rest
+            out.append((spec.seg0 + j0, full - j0, rest, a - lo, e - lo))
+            a = e
+        if a < b:                             # a cut last row
+            out.append((spec.seg0 + full, 1, b - a, a - lo, b - lo))
+    return out
+
+
+def _piece_rows(buf: torch.Tensor, piece) -> torch.Tensor:
+    """A piece of an (m, C) buffer as an (m, k, rest) view."""
+    s0, k, rest, a, b = piece
+    return buf[:, a:b].view(buf.shape[0], k, rest)
 
 
 def _check_layout(index: FlatIndex, xs, drop: int) -> None:
@@ -118,28 +181,35 @@ def _check_layout(index: FlatIndex, xs, drop: int) -> None:
 
 def flatten(index: FlatIndex, tree: Params,
             out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Pack one tree into a contiguous (N,) f32 buffer, into ``out`` if
-    given (a preallocated buffer or a row of one)."""
+    """Pack one tree into a contiguous (n_padded,) f32 buffer (zeros on
+    the inert tail), into ``out`` if given (a preallocated buffer or a row
+    of one)."""
     xs = leaves(tree)
     _check_layout(index, xs, drop=0)
     if out is None:
-        out = torch.empty(index.n, dtype=torch.float32, device=xs[0].device)
+        out = torch.empty(index.n_padded, dtype=torch.float32,
+                          device=xs[0].device)
     for x, s in zip(xs, index.leaves):
         out[s.offset:s.offset + s.size].copy_(x.reshape(-1))
+    out[index.n:].zero_()
     return out
 
 
 def flatten_stacked(index: FlatIndex, tree: Params) -> torch.Tensor:
-    """Pack a client-stacked tree (leading axis m) into (m, N) f32."""
+    """Pack a client-stacked tree (leading axis m) into (m, n_padded) f32
+    (zeros on the inert tail)."""
     xs = leaves(tree)
     _check_layout(index, xs, drop=1)
-    return torch.cat([x.reshape(x.shape[0], -1).to(torch.float32) for x in xs],
-                     dim=1)
+    m = xs[0].shape[0]
+    parts = [x.reshape(m, -1).to(torch.float32) for x in xs]
+    parts.append(torch.zeros((m, index.n_padded - index.n),
+                             dtype=torch.float32, device=xs[0].device))
+    return torch.cat(parts, dim=1)
 
 
 def unflatten(index: FlatIndex, buf: torch.Tensor) -> Params:
-    """Unpack an (N,) buffer into the tree with the original leaf dtypes;
-    f32 leaves are views of ``buf``."""
+    """Unpack an (n_padded,) buffer into the tree with the original leaf
+    dtypes, the inert tail dropped; f32 leaves are views of ``buf``."""
     return from_paths(
         [s.path for s in index.leaves],
         [buf[s.offset:s.offset + s.size].view(s.shape).to(s.dtype)
@@ -147,8 +217,9 @@ def unflatten(index: FlatIndex, buf: torch.Tensor) -> Params:
 
 
 def unflatten_stacked(index: FlatIndex, buf: torch.Tensor) -> Params:
-    """Unpack an (m, N) buffer into a client-stacked tree (leading axis m)
-    with the original leaf dtypes; f32 leaves are views of ``buf``."""
+    """Unpack an (m, n_padded) buffer into a client-stacked tree (leading
+    axis m) with the original leaf dtypes; f32 leaves are views of
+    ``buf``."""
     m = buf.shape[0]
     return from_paths(
         [s.path for s in index.leaves],
@@ -157,19 +228,43 @@ def unflatten_stacked(index: FlatIndex, buf: torch.Tensor) -> Params:
 
 
 def _density_and_fraction(cfg: ArchConfig, index: FlatIndex, mk: WidthMasks,
-                          out: Optional[torch.Tensor] = None):
-    """One client's flat 0/1 width-mask density (N,) and per-leaf active
+                          out: Optional[torch.Tensor] = None,
+                          cols: Optional[slice] = None):
+    """One client's flat 0/1 width-mask density on the columns ``cols``
+    (all of them by default; 0 on the inert tail) and its per-leaf active
     fraction (n_leaves,); the density is written into ``out`` if given."""
+    cols = cols or slice(0, index.n_padded)
+    lo, hi = cols.start, cols.stop
     ax = dict(leaves_with_path(axis_mask_tree(cfg, mk)))
     if out is None:
-        out = torch.empty(index.n, dtype=torch.float32,
+        out = torch.empty(hi - lo, dtype=torch.float32,
                           device=mk.d_model.device)
+    out[max(index.n, lo) - lo:].zero_()         # the inert tail
     fracs = []
     for spec in index.leaves:
-        out[spec.offset:spec.offset + spec.size].view(spec.shape).copy_(
-            mask_density(spec.shape, ax[spec.path]))
+        d = mask_density(spec.shape, ax[spec.path])
+        a, b = max(spec.offset, lo), min(spec.offset + spec.size, hi)
+        if a == spec.offset and b == spec.offset + spec.size:
+            out[a - lo:b - lo].view(spec.shape).copy_(d)
+        elif a < b:        # a leaf cut by the columns' edge
+            out[a - lo:b - lo].copy_(torch.broadcast_to(d, spec.shape)
+                                     .reshape(-1)[a - spec.offset:
+                                                  b - spec.offset])
         fracs.append(active_fraction(ax[spec.path]).to(out.device))
     return out, torch.stack(fracs)
+
+
+def _density_rows(cfg: ArchConfig, index: FlatIndex, masks: WidthMasks,
+                  cols: slice, device):
+    """(dens (m, C) on ``cols``, fracs (m, n_leaves)) of a stacked
+    cohort."""
+    m = masks.d_model.shape[0]
+    dens = torch.empty((m, cols.stop - cols.start), dtype=torch.float32,
+                       device=device)
+    fracs = torch.stack([_density_and_fraction(cfg, index, masks.client(c),
+                                               out=dens[c], cols=cols)[1]
+                         for c in range(m)])
+    return dens, fracs
 
 
 def _graft_flat(index: FlatIndex, x: torch.Tensor,
@@ -186,14 +281,12 @@ def _graft_flat(index: FlatIndex, x: torch.Tensor,
     return out
 
 
-def _scale_segments(index: FlatIndex, x: torch.Tensor,
-                    w: torch.Tensor) -> torch.Tensor:
-    """In place x[c, n] *= w[c, row_of[n]] for an (m, N) buffer and an
-    (m, S) per-segment table."""
-    m = x.shape[0]
-    for s in index.leaves:
-        x[:, s.offset:s.offset + s.size].view(m, s.lead, s.rest) \
-            .mul_(w[:, s.seg0:s.seg0 + s.lead, None])
+def _scale_segments(index: FlatIndex, x: torch.Tensor, w: torch.Tensor,
+                    cols: Optional[slice] = None) -> torch.Tensor:
+    """In place x[c, n] *= w[c, segment of n] for an (m, C) buffer on the
+    columns ``cols`` (all by default) and an (m, S) per-segment table."""
+    for p in _pieces(index, cols or slice(0, index.n_padded)):
+        _piece_rows(x, p).mul_(w[:, p[0]:p[0] + p[1], None])
     return x
 
 
@@ -216,11 +309,9 @@ def update_dtype_of(name: str) -> torch.dtype:
 
 def _quant_maps(index: FlatIndex):
     """Column -> scale-slot map of quantized admission, memoized on the
-    index: ``col_of`` (N,) int32 sends each position to its segment's
-    scale column and inert columns to the extra slot S, whose scale is 0
-    (so they quantize and dequantize to exact zeros).  The port's one-device
-    layout has no inert columns yet; the slot is kept so that a padded
-    layout stays inert."""
+    index: ``col_of`` (n_padded,) int32 sends each position to its
+    segment's scale column and the inert tail to the extra slot S, whose
+    scale is 0 (so it quantizes and dequantizes to exact zeros)."""
     maps = getattr(index, "_quant_maps", None)
     if maps is None:
         seg_id, _, _ = _segment_maps(index)
@@ -231,16 +322,20 @@ def _quant_maps(index: FlatIndex):
 
 
 def _inert_columns(index: FlatIndex, device) -> Optional[torch.Tensor]:
-    """Boolean (N,) mask of the columns in scale slot S, or None if none."""
+    """Boolean (n_padded,) mask of the columns in scale slot S, or None if
+    none."""
     (col_of,) = _quant_maps(index)
     inert = col_of == index.n_segments
     return torch.as_tensor(inert, device=device) if inert.any() else None
 
 
-def _quantize_rows(y: torch.Tensor, update_dtype: str):
+def _quantize_rows(y: torch.Tensor, update_dtype: str,
+                   floor: Optional[torch.Tensor] = None):
     """One leaf's (m, lead, rest) f32 rows in the admission dtype, with
     (m, lead) scales: int8 takes max|y|/127 per row (scale 0 on all-zero
-    rows, which quantize to zeros); bf16 and f32 carry scale 1."""
+    rows, which quantize to zeros); bf16 and f32 carry scale 1.  ``floor``
+    (m, lead) raises each row's max|y| to at least that much (a row whose
+    other columns lie on other model shards)."""
     ones = lambda: torch.ones(y.shape[:2], dtype=torch.float32,
                               device=y.device)
     if update_dtype == "f32":
@@ -248,6 +343,8 @@ def _quantize_rows(y: torch.Tensor, update_dtype: str):
     if update_dtype == "bf16":
         return y.to(torch.bfloat16), ones()
     seg_max = torch.amax(torch.abs(y), dim=2)
+    if floor is not None:
+        seg_max = torch.maximum(seg_max, floor)
     # true f32 divisions and round-half-to-even, as the reference writes
     # them (max is exact, so a per-row amax gives the reference's scatter-max)
     scales = seg_max / 127.0
@@ -279,7 +376,7 @@ def quantize_cohort(index: FlatIndex, x: torch.Tensor, update_dtype: str):
     if update_dtype != "int8":
         return x.to(want), torch.ones((m, index.n_segments),
                                       dtype=torch.float32, device=x.device)
-    x_q = torch.empty((m, index.n), dtype=torch.int8, device=x.device)
+    x_q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty((m, index.n_segments), dtype=torch.float32,
                          device=x.device)
     for spec in index.leaves:
@@ -294,8 +391,8 @@ def quantize_cohort(index: FlatIndex, x: torch.Tensor, update_dtype: str):
 
 def dequantize_cohort(index: FlatIndex, x_q: torch.Tensor,
                       scales: torch.Tensor) -> torch.Tensor:
-    """f32 (m, N) of a quantized cohort: x_q · scale of its segment; inert
-    columns read the scale-0 slot.  bf16 cohorts carry all-ones scales.
+    """f32 (m, n_padded) of a quantized cohort: x_q · scale of its segment;
+    inert columns read the scale-0 slot.  bf16 cohorts carry all-ones scales.
     For checks: admission and aggregation never build this (m, N)
     product."""
     out = torch.empty(x_q.shape, dtype=torch.float32, device=x_q.device)
@@ -310,41 +407,93 @@ def dequantize_cohort(index: FlatIndex, x_q: torch.Tensor,
 
 def admit_quantized(index: FlatIndex, cfg: ArchConfig, x: torch.Tensor,
                     masks: WidthMasks, gmaps: torch.Tensor, graft: bool,
-                    state, update_dtype: str) -> None:
+                    state, update_dtype: str, mesh=None,
+                    cols: Optional[slice] = None) -> None:
     """Quantized admission with server-side error feedback, in the order of
     the reference round (``repro.core.round._round_q``): graft the trained
-    f32 cohort x (m, N) if ``graft``; y = (x + dequantize(e, e_s))·dens;
-    (x_q, scales) = quantize(y); e' = y − dequantize(x_q, scales);
-    (e, e_s) = quantize(e').  ``state`` = (x_q, scales, e, e_s) is updated
-    in place.  Each leaf is done whole before the next, so no (m, N) f32
-    transient exists: the per-element arithmetic, and so every bit, is
-    that of the whole-buffer reference."""
+    f32 cohort x (m, n_padded) if ``graft``; y = (x + dequantize(e,
+    e_s))·dens; (x_q, scales) = quantize(y); e' = y − dequantize(x_q,
+    scales); (e, e_s) = quantize(e').  ``state`` = (x_q, scales, e, e_s) is
+    updated in place.  The columns go piece by piece (``_pieces``: whole
+    leaves where no edge cuts them), each done whole before the next, so
+    no (m, N) f32 transient exists: the per-element arithmetic, and so
+    every bit, is that of the whole-buffer reference.
+
+    ``cols`` (a rank's P("model") columns, with ``mesh``; all by default):
+    the state holds only those columns, while x is still whole rows.  The
+    int8 scales of every segment then come from maxima all-reduced over
+    ``model`` (one all-reduce for y's, one for the residual's), so a
+    segment cut by a shard's edge is quantized as on one device and every
+    rank holds the whole (m, S) scale tables."""
     x_q, scales, e_q, e_s = state
+    cols = cols or slice(0, index.n_padded)
     m = x.shape[0]
+    seg0s = [spec.seg0 for spec in index.leaves]
     axs = [dict(leaves_with_path(axis_mask_tree(cfg, masks.client(c))))
            for c in range(m)]
     rows = torch.arange(m, device=x.device)[:, None]
-    for spec in index.leaves:
-        segs = slice(spec.seg0, spec.seg0 + spec.lead)
+    dens_of = {}
+
+    def y_of(p):
+        """y = (x + dequantize(e))·dens on the piece, as (m, k, rest)."""
+        s0, k, rest, a, _ = p
+        li = bisect.bisect_right(seg0s, s0) - 1
+        spec = index.leaves[li]
+        j = s0 - spec.seg0
+        c = cols.start + a - spec.offset - j * spec.rest   # within the row
         xl = _leaf_rows(x, spec)
-        if graft and spec.stacked and spec.stage == 0:
-            xl = xl[rows, gmaps]
-        dens = torch.stack([mask_density(spec.shape, axs[c][spec.path])
-                            for c in range(m)]).to(x.device)
-        y = ((xl + _dequantize_rows(_leaf_rows(e_q, spec), e_s[:, segs]))
-             .view(m, *spec.shape) * dens).view(m, spec.lead, spec.rest)
-        q, s = _quantize_rows(y, update_dtype)
+        xl = xl[rows, gmaps[:, j:j + k]] if (graft and spec.stacked
+                                             and spec.stage == 0) \
+            else xl[:, j:j + k]
+        y = xl[..., c:c + rest] + _dequantize_rows(_piece_rows(e_q, p),
+                                                   e_s[:, s0:s0 + k])
+        if li not in dens_of:
+            dens_of.clear()
+            dens_of[li] = torch.stack([mask_density(spec.shape,
+                                                    axs[i][spec.path])
+                                       for i in range(m)]).to(x.device)
+        dens = dens_of[li]
+        if (k, rest) == (spec.lead, spec.rest):          # the whole leaf
+            return (y.view((m,) + spec.shape) * dens).view(y.shape)
+        return y * torch.broadcast_to(dens, (m,) + spec.shape).reshape(
+            m, spec.lead, spec.rest)[:, j:j + k, c:c + rest]
+
+    pieces = _pieces(index, cols)
+    y_max = e_max = None
+    if update_dtype == "int8" and cols != slice(0, index.n_padded):
+        y_max = torch.zeros((m, index.n_segments), device=x.device)
+        e_max = torch.zeros_like(y_max)
+        for p in pieces:
+            y_max[:, p[0]:p[0] + p[1]] = torch.amax(torch.abs(y_of(p)), dim=2)
+        coll.all_reduce(y_max, mesh, csh.MODEL_AXIS, op="max")
+        for p in pieces:
+            y = y_of(p)
+            q, s = _quantize_rows(y, update_dtype, y_max[:, p[0]:p[0] + p[1]])
+            e_max[:, p[0]:p[0] + p[1]] = torch.amax(
+                torch.abs(y - _dequantize_rows(q, s)), dim=2)
+        coll.all_reduce(e_max, mesh, csh.MODEL_AXIS, op="max")
+    for p in pieces:
+        segs = slice(p[0], p[0] + p[1])
+        y = y_of(p)
+        q, s = _quantize_rows(y, update_dtype,
+                              None if y_max is None else y_max[:, segs])
         e = y - _dequantize_rows(q, s)
-        eq, es = _quantize_rows(e, update_dtype)
-        _leaf_rows(x_q, spec).copy_(q)
+        eq, es = _quantize_rows(e, update_dtype,
+                                None if e_max is None else e_max[:, segs])
+        _piece_rows(x_q, p).copy_(q)
         scales[:, segs] = s
-        _leaf_rows(e_q, spec).copy_(eq)
+        _piece_rows(e_q, p).copy_(eq)
         e_s[:, segs] = es
+    if y_max is not None:
+        # the scales _quantize_rows takes from these maxima, for the
+        # segments with no column here too (y_of has read the old e_s)
+        scales.copy_(y_max / 127.0)
+        e_s.copy_(e_max / 127.0)
 
 
 def _device_seg_id(index: FlatIndex, device) -> torch.Tensor:
-    """The (N,) int32 segment id of every column on ``device`` (−1 on
-    inert columns), memoized on the index."""
+    """The (n_padded,) int32 segment id of every column on ``device`` (−1
+    on the inert tail), memoized on the index."""
     cache = getattr(index, "_seg_ids", None)
     if cache is None:
         cache = index._seg_ids = {}
@@ -352,6 +501,24 @@ def _device_seg_id(index: FlatIndex, device) -> torch.Tensor:
     if key not in cache:
         cache[key] = torch.as_tensor(_segment_maps(index)[0], device=key)
     return cache[key]
+
+
+def two_d(index: FlatIndex, mesh, use_kernel: Optional[bool]) -> bool:
+    """Does the aggregation run 2-D on this mesh?  As in the reference:
+    model shards, the kernel route (the kernels on the card, their plain
+    versions on the CPU; not ``use_kernel=False``) and n_padded a multiple
+    of M x 512 (``sharding.cohort.pad_unit``)."""
+    ms = csh.model_shards(mesh)
+    return (ms > 1 and use_kernel is not False
+            and index.n_padded % (ms * csh.TILE) == 0)
+
+
+def pool_cols(index: FlatIndex, mesh, use_kernel: Optional[bool]) -> slice:
+    """The columns a rank keeps of its cohort rows between rounds: its
+    P("model") slice where the aggregation runs 2-D, else all of them."""
+    if two_d(index, mesh, use_kernel):
+        return csh.model_cols(mesh, index.n_padded)
+    return slice(0, index.n_padded)
 
 
 def _rows_trimmed_stats(rows: torch.Tensor, q: torch.Tensor,
@@ -368,14 +535,29 @@ def _rows_trimmed_stats(rows: torch.Tensor, q: torch.Tensor,
     return t.reshape(m, R), sq.reshape(m, R)
 
 
-def _cohort_norms(index: FlatIndex, xm: torch.Tensor, fracs: torch.Tensor,
+def _cohort_stats(index: FlatIndex, xm: torch.Tensor, fracs: torch.Tensor,
                   trim: float, scales: Optional[torch.Tensor] = None,
-                  use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """Per-(client, segment) trimmed norms of the masked (m, N) updates with
-    (m, n_leaves) active fractions -> (m, S).  ``scales`` (m, S) declares
-    ``xm`` quantized: each leaf's rows carry their segments' scales."""
+                  use_kernel: Optional[bool] = None, mesh=None,
+                  cols: Optional[slice] = None):
+    """Per-(client, segment) trimmed-quantile thresholds and trimmed Σw² of
+    the masked updates xm with (m, n_leaves) active fractions -> (t, ss),
+    both (m, S).  ``scales`` (m, S) declares xm quantized.
+
+    By default xm holds whole rows (m, n_padded) and each leaf's rows go
+    to ``row_trimmed_stats`` with no collective.  With ``cols`` xm holds
+    those columns of a model-sharded layout and the pass is 2-D: the
+    segmented multilevel quantile over the local columns, its histogram
+    planes all-reduced over ``model``."""
+    if cols is not None:
+        seg_id, seg_len, leaf_of = _segment_maps(index)
+        q_seg = 1.0 - (1.0 - trim) * fracs[:, torch.as_tensor(
+            leaf_of, dtype=torch.int64, device=fracs.device)]
+        return quant_ml.segmented_trimmed_stats(
+            xm, _device_seg_id(index, xm.device)[cols],
+            torch.as_tensor(seg_len, dtype=torch.int64, device=xm.device),
+            q_seg, scales, use_kernel, mesh=mesh)
     m = xm.shape[0]
-    cols = []
+    ts, sqs = [], []
     for li, spec in enumerate(index.leaves):
         rows = xm[:, spec.offset:spec.offset + spec.size] \
             .reshape(m, spec.lead, spec.rest)
@@ -384,9 +566,10 @@ def _cohort_norms(index: FlatIndex, xm: torch.Tensor, fracs: torch.Tensor,
         q = 1.0 - (1.0 - trim) * fracs[:, li]
         sc = None if scales is None else scales[:, spec.seg0:spec.seg0
                                                 + spec.lead]
-        _, sq = _rows_trimmed_stats(rows, q, sc, use_kernel)
-        cols.append(torch.sqrt(sq))
-    return torch.cat(cols, dim=1)
+        t, sq = _rows_trimmed_stats(rows, q, sc, use_kernel)
+        ts.append(t)
+        sqs.append(sq)
+    return torch.cat(ts, dim=1), torch.cat(sqs, dim=1)
 
 
 def aggregate_buffers(index: FlatIndex, g_flat: torch.Tensor, x: torch.Tensor,
@@ -396,12 +579,14 @@ def aggregate_buffers(index: FlatIndex, g_flat: torch.Tensor, x: torch.Tensor,
                       scale: bool = True,
                       scales: Optional[torch.Tensor] = None,
                       trim: float = 0.95, eps: float = 1e-12,
-                      use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """Alg. 1 in flat space: (N,) global + (m, N) cohort in, (N,) new global
-    out.  ``masks``, ``gates`` (m, R), ``gmaps`` (m, R) and ``n_data`` (m,)
-    are the stacked cohort runtimes.  Clients with n_data = 0 weigh nothing
-    in either sum and are left out of the α mean.  ``pregrafted`` declares
-    the rows grafted already (grafting weights stay in force).
+                      use_kernel: Optional[bool] = None,
+                      mesh=None) -> torch.Tensor:
+    """Alg. 1 in flat space: (n_padded,) global + (m, n_padded) cohort in,
+    new global out.  ``masks``, ``gates`` (m, R), ``gmaps`` (m, R) and
+    ``n_data`` (m,) are the stacked cohort runtimes.  Clients with n_data
+    = 0 weigh nothing in either sum and are left out of the α mean.
+    ``pregrafted`` declares the rows grafted already (grafting weights
+    stay in force).
 
     ``scales`` (m, S) switches to quantized admission: x is int8 or bf16,
     grafted and density-masked (``admit_quantized``); the norms read it
@@ -409,22 +594,40 @@ def aggregate_buffers(index: FlatIndex, g_flat: torch.Tensor, x: torch.Tensor,
     per-(client, segment) table, so x is never dequantized in memory.  Γ
     is mask data, as on the f32 path.
 
+    With ``mesh`` every argument is this rank's: its rows of the cohort
+    and its runtimes, and ``g_flat`` its ``sharding.cohort.model_cols``
+    slice of the global, which is what it gets back.  x holds whole rows
+    (grafted here unless ``pregrafted``) or only the rank's ``pool_cols``.
+    Where ``two_d`` holds, densities, the norms pass and both sums run on
+    the (m/D, N/M) slice; otherwise on whole rows, and ``accumulate``
+    reduce-scatters over ``model``.  The α mean and both sums all-reduce
+    over ``data``.
+
     ``use_kernel`` chooses the kernels or their plain versions
     (``kernels.build.runs_plain``; None takes the kernels on the card)."""
-    kc = dict(use_kernel=use_kernel)
+    kc = dict(use_kernel=use_kernel, mesh=mesh)
     if scales is not None and graft and not pregrafted:
         raise ValueError("quantized cohorts must be grafted before "
                          "quantization (pass pregrafted=True)")
-    m = x.shape[0]
-    dens = torch.empty((m, index.n), dtype=torch.float32, device=x.device)
-    fracs = torch.stack([_density_and_fraction(cfg, index, masks.client(c),
-                                               out=dens[c])[1]
-                         for c in range(m)])
+    is_2d = two_d(index, mesh, use_kernel)
+    cols = pool_cols(index, mesh, use_kernel)
+    width = cols.stop - cols.start
+    if x.shape[1] not in (index.n_padded, width):
+        raise ValueError(f"cohort rows of {x.shape[1]} columns: expected "
+                         f"{index.n_padded} or this rank's {width}")
+    dens, fracs = _density_rows(cfg, index, masks, cols, x.device)
     if scales is None:
-        x_g = _graft_flat(index, x, gmaps) if graft and not pregrafted \
-            else x.clone()
+        if graft and not pregrafted:
+            if x.shape[1] != index.n_padded:
+                raise ValueError("grafting needs whole rows")
+            x_g = _graft_flat(index, x, gmaps)
+            if width != index.n_padded:
+                x_g = x_g[:, cols].contiguous()
+        else:
+            x_g = (x[:, cols] if x.shape[1] != width else x).clone(
+                memory_format=torch.contiguous_format)
     else:   # quantized rows arrive grafted and density-masked
-        x_g = x
+        x_g = x if x.shape[1] == width else x[:, cols].contiguous()
 
     dwrow = None   # grafting weights every depth slot equally
     if not graft:  # depth gates weight stage-0 rows; everything else 1
@@ -437,24 +640,32 @@ def aggregate_buffers(index: FlatIndex, g_flat: torch.Tensor, x: torch.Tensor,
         x_g.mul_(dens)                               # x_g is now x_g·dens
     warow = dwrow
     if scale:
-        norms = _cohort_norms(index, x_g, fracs, trim, scales, **kc)  # (m, S)
+        _, ss = _cohort_stats(index, x_g, fracs, trim, scales, use_kernel,
+                              mesh, cols if is_2d else None)
+        norms = torch.sqrt(ss)                                      # (m, S)
         valid = (n_data > 0).to(torch.float32)
-        mean_norms = torch.sum(valid[:, None] * norms, dim=0, keepdim=True) \
-            / torch.clamp_min(torch.sum(valid), 1.0)
+        sums = torch.cat([torch.sum(valid[:, None] * norms, dim=0),
+                          torch.sum(valid)[None]])
+        if mesh is not None:    # the mean over every real row of the cohort
+            coll.all_reduce(sums, mesh, csh.DATA_AXIS)
+        mean_norms = sums[None, :-1] / torch.clamp_min(sums[-1], 1.0)
         alpha = mean_norms / torch.clamp_min(norms, eps)
         warow = alpha if dwrow is None else dwrow * alpha
-    ones_n = torch.ones(index.n, dtype=torch.float32, device=x.device)
+    ones_n = torch.ones(width, dtype=torch.float32, device=x.device)
     if scales is None:
-        contrib = x_g if warow is None else _scale_segments(index, x_g, warow)
-        Mp = agg_ops.scaled_accum(contrib, n_data, ones_n, **kc)
+        contrib = x_g if warow is None else _scale_segments(index, x_g, warow,
+                                                            cols)
+        Mp = agg_ops.accumulate(contrib, n_data, ones_n, cohort_2d=is_2d,
+                                **kc)
         del contrib
     else:   # scale·α·gate fold into one (m, S) table read inside the kernel
         coeff = scales if warow is None else warow * scales
-        Mp = agg_ops.accumulate_quant(x_g, n_data, coeff,
-                                      _device_seg_id(index, x.device), ones_n,
-                                      **kc)
+        Mp = agg_ops.accumulate_quant(
+            x_g, n_data, coeff, _device_seg_id(index, x.device)[cols],
+            ones_n, cohort_2d=is_2d, **kc)
     del x_g
-    counts = dens if dwrow is None else _scale_segments(index, dens, dwrow)
-    Gm = agg_ops.scaled_accum(counts, n_data, ones_n, **kc)
+    counts = dens if dwrow is None else _scale_segments(index, dens, dwrow,
+                                                        cols)
+    Gm = agg_ops.accumulate(counts, n_data, ones_n, cohort_2d=is_2d, **kc)
     upd = Mp / torch.clamp_min(Gm, eps)
     return torch.where(Gm > 0, upd, g_flat)        # γ = 0 keeps the global

@@ -14,6 +14,14 @@ the trained f32 rows pass through grafting and server-side error feedback
 into a quantized cohort state (x_q, scales, e, e_scales), kept per cohort
 shape beside the f32 training buffer and updated in place; aggregation
 reads x_q through its scales.
+
+With a mesh (``launch.mesh``; the layout of ``sharding.cohort``) each rank
+runs this driver on its share: the cohort is padded with inert rows to a
+multiple of the data shards and the rank trains its m/D rows, against the
+global gathered once over ``model`` from the (N/M,) slice it keeps; its
+training buffer holds whole rows, and its quantized state only its
+``flat.pool_cols``.  The round's loss averages the real rows over
+``data``, and the tree is gathered at eval boundaries.
 """
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ from repro_torch.core.fedfa import STRATEGIES
 from repro_torch.core.server import (ClientSpec, FLConfig, cohort_update,
                                      default_class_masks, stack_runtimes)
 from repro_torch.models.model import _to_torch
+from repro_torch.sharding import cohort as csh
+from repro_torch.sharding import collectives as coll
 
 Params = Dict[str, Any]
 
@@ -42,15 +52,17 @@ QuantState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def fresh_quant_state(index: flat.FlatIndex, m: int, update_dtype: str,
-                      device) -> QuantState:
-    """Zeroed quantized cohort state (x_q, scales, e, e_scales): the rows,
-    their (m, S) scales and the error-feedback residual with its scales.
-    Zero pools make the first round's error feedback an exact no-op."""
+                      device, width: Optional[int] = None) -> QuantState:
+    """Zeroed quantized cohort state (x_q, scales, e, e_scales): the rows
+    (``width`` columns, n_padded by default), their (m, S) scales and the
+    error-feedback residual with its scales.  Zero pools make the first
+    round's error feedback an exact no-op."""
     want = flat.update_dtype_of(update_dtype)
     S = index.n_segments
-    return (torch.zeros((m, index.n), dtype=want, device=device),
+    width = index.n_padded if width is None else width
+    return (torch.zeros((m, width), dtype=want, device=device),
             torch.zeros((m, S), dtype=torch.float32, device=device),
-            torch.zeros((m, index.n), dtype=want, device=device),
+            torch.zeros((m, width), dtype=want, device=device),
             torch.zeros((m, S), dtype=torch.float32, device=device))
 
 
@@ -64,7 +76,7 @@ def quant_state_from_numpy(index: flat.FlatIndex, update_dtype: str, arrays,
     # copies: the state is updated in place, and JAX's arrays are read-only
     out = tuple(_to_torch(np.array(a)).to(device) for a in arrays)
     m = out[0].shape[0]
-    rows, tab = (flat.update_dtype_of(update_dtype), (m, index.n)), \
+    rows, tab = (flat.update_dtype_of(update_dtype), (m, index.n_padded)), \
         (torch.float32, (m, index.n_segments))
     for name, t, (dtype, shape) in zip(("x_q", "scales", "e", "e_scales"),
                                        out, (rows, tab, rows, tab)):
@@ -77,62 +89,97 @@ def quant_state_from_numpy(index: flat.FlatIndex, update_dtype: str, arrays,
 def flat_round(g_buf: torch.Tensor, c_buf: torch.Tensor, cfg: ArchConfig,
                fl: FLConfig, index: flat.FlatIndex, runtimes, batches,
                perms: Optional[torch.Tensor] = None,
-               qstate: Optional[QuantState] = None) -> torch.Tensor:
+               qstate: Optional[QuantState] = None,
+               mesh=None) -> torch.Tensor:
     """One resident round, in place: trains the cohort into ``c_buf``
-    (m, N), aggregates, and overwrites ``g_buf`` (N,) with the new global.
-    runtimes: the ``server.stack_runtimes`` tuple of the cohort.  With a
-    quantized ``fl.update_dtype``, ``qstate`` (``fresh_quant_state``) is
-    the cohort's quantized state, admitted into in place.  Returns the mean
-    local loss."""
+    (m, n_padded), aggregates, and overwrites ``g_buf`` with the new
+    global.  runtimes: the ``server.stack_runtimes`` tuple of the cohort.
+    With a quantized ``fl.update_dtype``, ``qstate`` (``fresh_quant_state``)
+    is the cohort's quantized state, admitted into in place.  Returns the
+    mean local loss.
+
+    With ``mesh`` the runtimes, batches and perms are the whole cohort's
+    (m rows); it is padded with inert rows (``sharding.cohort.pad_cohort``;
+    pad rows take row 0's permutation) and this rank trains its rows
+    ``data_rows`` into ``c_buf`` (m_pad/D, n_padded).  ``g_buf`` is its
+    ``model_cols`` slice and ``qstate`` holds its rows on ``pool_cols``.
+    The loss is the mean over the cohort's real rows."""
+    m = runtimes[3].shape[0]
+    g_full = g_buf
+    if mesh is not None:
+        pad = csh.pad_rows(m, mesh)
+        runtimes, batches = csh.pad_cohort(runtimes, batches, pad)
+        perms = csh.pad_leading(perms, pad)
+        rows = csh.data_rows(mesh, m + pad)
+        runtimes = tuple(csh.rows_of(t, rows) for t in runtimes)
+        batches, perms = csh.rows_of(batches, rows), csh.rows_of(perms, rows)
+        g_full = coll.gather_model(g_buf, mesh, index.n_padded)
     masks, gates, gmaps, nd, cms, mal = runtimes
-    m = c_buf.shape[0]
-    g = flat.unflatten(index, g_buf)
+    r = c_buf.shape[0]
+    if nd.shape[0] != r:
+        raise ValueError(f"a cohort of {nd.shape[0]} rows here, but the "
+                         f"training buffer holds {r}")
+    g = flat.unflatten(index, g_full)
     losses = cohort_update(g, cfg, fl, index, masks, gates, batches,
-                           default_class_masks(cms, cfg, fl, m, g_buf.device),
+                           default_class_masks(cms, cfg, fl, r, g_buf.device),
                            mal, perms, c_buf)
-    kw = STRATEGIES[fl.strategy]
+    del g, g_full
+    kw = dict(STRATEGIES[fl.strategy], trim=fl.trim, use_kernel=fl.use_kernel,
+              mesh=mesh)
     if fl.update_dtype == "f32":
         g_new = flat.aggregate_buffers(index, g_buf, c_buf, cfg, masks, gates,
-                                       gmaps, nd, trim=fl.trim,
-                                       use_kernel=fl.use_kernel, **kw)
+                                       gmaps, nd, **kw)
     else:
+        cols = flat.pool_cols(index, mesh, fl.use_kernel)
         if qstate is None or qstate[0].dtype != flat.update_dtype_of(
-                fl.update_dtype) or qstate[0].shape != c_buf.shape:
+                fl.update_dtype) or tuple(qstate[0].shape) != (
+                r, cols.stop - cols.start):
             raise ValueError(f"a {fl.update_dtype} round needs its "
-                             f"({m}, N) quantized state")
+                             f"({r}, {cols.stop - cols.start}) quantized "
+                             f"state")
         flat.admit_quantized(index, cfg, c_buf, masks, gmaps,
                              bool(kw.get("graft", False)), qstate,
-                             fl.update_dtype)
+                             fl.update_dtype, mesh, cols)
         g_new = flat.aggregate_buffers(index, g_buf, qstate[0], cfg, masks,
-                                       gates, gmaps, nd, trim=fl.trim,
-                                       scales=qstate[1], pregrafted=True,
-                                       use_kernel=fl.use_kernel, **kw)
+                                       gates, gmaps, nd, scales=qstate[1],
+                                       pregrafted=True, **kw)
     g_buf.copy_(g_new)
-    return torch.mean(losses)
+    if mesh is None:
+        return torch.mean(losses)
+    real = (torch.arange(r, device=losses.device) + rows.start < m)
+    sums = torch.stack([torch.sum(torch.where(real, losses, 0.0)),
+                        torch.sum(real.to(losses.dtype))])
+    coll.all_reduce(sums, mesh, csh.DATA_AXIS)
+    return sums[0] / sums[1]
 
 
 class ResidentDriver:
     """Multi-round state: the FlatIndex and one pool per (cohort size,
     admission dtype) — the f32 training buffer and, for a quantized dtype,
     the quantized state — allocated on first use and reused in place.  An
-    f32 and an int8 cohort of one size never share a pool."""
+    f32 and an int8 cohort of one size never share a pool.  With a mesh
+    the size is the padded row count, so cohorts that pad alike share a
+    pool, and the pool holds this rank's rows of it."""
 
     def __init__(self, cfg: ArchConfig, fl: FLConfig, index: flat.FlatIndex,
-                 device):
-        self.cfg, self.fl, self.index = cfg, fl, index
+                 device, mesh=None):
+        self.cfg, self.fl, self.index, self.mesh = cfg, fl, index, mesh
         self.device = torch.device(device)
         self._pools: Dict[Tuple[int, str],
                           Tuple[torch.Tensor, Optional[QuantState]]] = {}
 
     def pool(self, m: int) -> Tuple[torch.Tensor, Optional[QuantState]]:
         """(f32 training buffer, quantized state or None) of an m-client
-        cohort at the current admission dtype."""
-        key = (m, self.fl.update_dtype)
+        cohort at the current admission dtype (this rank's rows of it)."""
+        rows = m + csh.pad_rows(m, self.mesh)
+        key = (rows, self.fl.update_dtype)
         if key not in self._pools:
-            c_buf = torch.empty((m, self.index.n), dtype=torch.float32,
+            r = rows // csh.data_shards(self.mesh)
+            cols = flat.pool_cols(self.index, self.mesh, self.fl.use_kernel)
+            c_buf = torch.empty((r, self.index.n_padded), dtype=torch.float32,
                                 device=self.device)
             qstate = None if key[1] == "f32" else fresh_quant_state(
-                self.index, m, key[1], self.device)
+                self.index, r, key[1], self.device, cols.stop - cols.start)
             self._pools[key] = (c_buf, qstate)
         return self._pools[key]
 
@@ -144,7 +191,7 @@ class ResidentDriver:
         c_buf, qstate = self.pool(len(specs))
         runtimes = stack_runtimes(self.cfg, specs, self.device)
         return flat_round(g_buf, c_buf, self.cfg, self.fl, self.index,
-                          runtimes, batches, perms, qstate)
+                          runtimes, batches, perms, qstate, mesh=self.mesh)
 
 
 def label_count(batches, task: str) -> int:
@@ -167,8 +214,8 @@ def run_rounds(global_params: Params, cfg: ArchConfig, fl: FLConfig,
                eval_every: int = 5,
                eval_fn: Optional[Callable[[int, float, Params], None]] = None,
                ckpt_path: Optional[str] = None,
-               perm_fn: Optional[Callable[[int, int, int], torch.Tensor]] = None
-               ) -> Tuple[Params, List[float]]:
+               perm_fn: Optional[Callable[[int, int, int], torch.Tensor]] = None,
+               mesh=None) -> Tuple[Params, List[float]]:
     """Drive R resident rounds on the device of ``global_params``.
 
     data_fn(r) -> (selected ClientSpecs, dict of stacked client batches on
@@ -178,15 +225,24 @@ def run_rounds(global_params: Params, cfg: ArchConfig, fl: FLConfig,
     params) runs at ``eval_boundary`` rounds; with ``ckpt_path`` set, a
     checkpoint ``f"{ckpt_path}_r{r:05d}"`` is written from the resident
     buffer at the same rounds.  Returns (final params, per-round mean
-    losses)."""
+    losses).
+
+    With ``mesh`` every rank calls this with the same arguments: the index
+    pads N to ``sharding.cohort.pad_unit``, the rank keeps its P("model")
+    slice of the global and trains its rows of each cohort, and the
+    global is gathered at eval boundaries (rank 0 writes the
+    checkpoints)."""
     if rounds <= 0:
         return global_params, []
     device = global_params["embed"].device
-    index = flat.FlatIndex(global_params)
-    driver = ResidentDriver(cfg, fl, index, device)
+    index = flat.FlatIndex(global_params, pad_to=csh.pad_unit(mesh))
+    driver = ResidentDriver(cfg, fl, index, device, mesh)
     g_buf = flat.flatten(index, global_params)
+    if mesh is not None:
+        g_buf = g_buf[csh.model_cols(mesh, index.n_padded)].clone()
     perm_fn = perm_fn or default_perms(fl.seed)
     losses: List[float] = []
+    g_full = g_buf      # gathered at each eval boundary, the last round's too
     for r in range(rounds):
         specs, batches = data_fn(r)
         perms = None
@@ -194,11 +250,12 @@ def run_rounds(global_params: Params, cfg: ArchConfig, fl: FLConfig,
             perms = perm_fn(r, len(specs), label_count(batches, fl.task)).to(device)
         losses.append(float(driver.round(g_buf, specs, batches, perms)))
         if eval_boundary(r, rounds, eval_every):
+            g_full = coll.gather_model(g_buf, mesh, index.n_padded)
             if eval_fn is not None:
-                eval_fn(r, losses[-1], flat.unflatten(index, g_buf))
+                eval_fn(r, losses[-1], flat.unflatten(index, g_full))
             if ckpt_path is not None:
                 from repro_torch.checkpoint import checkpoint as ckpt_mod
                 ckpt_mod.save_from_buffer(
-                    f"{ckpt_path}_r{r:05d}", index, g_buf,
-                    meta={"round": r, "strategy": fl.strategy})
-    return flat.unflatten(index, g_buf), losses
+                    f"{ckpt_path}_r{r:05d}", index, g_full,
+                    meta={"round": r, "strategy": fl.strategy}, mesh=mesh)
+    return flat.unflatten(index, g_full), losses

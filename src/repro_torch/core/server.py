@@ -3,7 +3,10 @@ selected cohort (Alg. 1 lines 4-10), plus the per-round driver.
 
 The cohort is a loop over clients; each client's updated model is packed
 straight into its row of the (m, N) cohort buffer, so no stacked tree of
-client models is ever built.
+client models is ever built.  On a mesh (``round.flat_round``) a rank
+trains its m/D clients against the global gathered over ``model``; its
+model peers train the same clients, as the reference's model-replicated
+training does, and each keeps its own columns of the rows.
 """
 from __future__ import annotations
 
@@ -125,7 +128,8 @@ def fl_round(global_params: Params, cfg: ArchConfig, fl: FLConfig,
     device = global_params["embed"].device
     masks, gates, gmaps, nd, cms, mal = stack_runtimes(cfg, specs, device)
     index = flat.FlatIndex(global_params)
-    x = torch.empty((len(specs), index.n), dtype=torch.float32, device=device)
+    x = torch.empty((len(specs), index.n_padded), dtype=torch.float32,
+                    device=device)
     losses = cohort_update(global_params, cfg, fl, index, masks, gates,
                            client_batches,
                            default_class_masks(cms, cfg, fl, len(specs), device),
@@ -165,8 +169,9 @@ def fl_round_flat(g_buf: torch.Tensor, cfg: ArchConfig, fl: FLConfig,
                    else (c_buf, None))
     want = flat.update_dtype_of(fl.update_dtype)
     if (not isinstance(buf, torch.Tensor)
-            or tuple(buf.shape) != (m, index.n)):
-        buf = torch.empty((m, index.n), dtype=torch.float32, device=device)
+            or tuple(buf.shape) != (m, index.n_padded)):
+        buf = torch.empty((m, index.n_padded), dtype=torch.float32,
+                          device=device)
     if qmode and (qstate is None or qstate[0].dtype != want
                   or qstate[0].shape[0] != m):
         qstate = round_mod.fresh_quant_state(index, m, fl.update_dtype,

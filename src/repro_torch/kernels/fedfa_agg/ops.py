@@ -64,7 +64,7 @@ def scaled_accum(x: torch.Tensor, weights: torch.Tensor,
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     SCALED_ACCUM.launch(x.data_ptr(), DTYPE_CODES[x.dtype], weights.data_ptr(),
                         mask.data_ptr(), out.data_ptr(), m, n, sms,
-                        stream_of(x))
+                        stream_of(x), shape=(m, n))
     return out
 
 
@@ -98,18 +98,71 @@ def quant_accum(x: torch.Tensor, wtab: torch.Tensor, seg: torch.Tensor,
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     QUANT_ACCUM.launch(x.data_ptr(), DTYPE_CODES[x.dtype], wtab.data_ptr(),
                        seg.data_ptr(), mask.data_ptr(), out.data_ptr(), m, S,
-                       n, sms, stream_of(x))
+                       n, sms, stream_of(x), shape=(m, n))
     return out
+
+
+def _sharded_sum(local, x: torch.Tensor, weights: torch.Tensor, mesh,
+                 cohort_2d: bool) -> torch.Tensor:
+    """Σ over the cohort's clients of ``local(x, weights)``, the sum over
+    this rank's rows, on a mesh (``repro.kernels.fedfa_agg.ops
+    .accumulate``'s layouts):
+
+      * ``cohort_2d`` with model shards: x is the rank's (m/D, N/M) slice;
+        one N/M all-reduce over ``data`` ends the sum;
+      * otherwise, with model shards dividing n: the model peers split the
+        data shard's rows (row i to peer (i·M)//rows, the other peers'
+        weights zeroed: exact for any row count), reduce-scatter over
+        ``model`` and all-reduce the N/M block over ``data``;
+      * on a data-only mesh (or n not divisible by M): one n-sized
+        all-reduce over ``data``.
+
+    The result is the rank's P("model") block (all of n without model
+    shards), the layout of the resident global."""
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sharding.cohort import DATA_AXIS, MODEL_AXIS
+    ms = mesh.size(MODEL_AXIS)
+    if cohort_2d and ms > 1:
+        return coll.all_reduce(local(x, weights), mesh, DATA_AXIS)
+    if x.shape[1] % ms:
+        ms = 1
+    if ms > 1:
+        rows = x.shape[0]
+        slot = (torch.arange(rows, device=x.device) * ms) // rows
+        weights = torch.where(slot == mesh.coord[1], weights, 0.0)
+    part = local(x, weights)
+    if ms > 1:
+        part = coll.reduce_scatter(part, mesh, MODEL_AXIS)
+    return coll.all_reduce(part, mesh, DATA_AXIS)
+
+
+def accumulate(x: torch.Tensor, weights: torch.Tensor, mask: torch.Tensor,
+               use_kernel: Optional[bool] = None, mesh=None,
+               cohort_2d: bool = False) -> torch.Tensor:
+    """Σ_c weights[c]·x[c]·mask over the cohort's clients: ``scaled_accum``
+    on this rank's rows, summed over the mesh as ``_sharded_sum`` says
+    (one launch, no collective, without a mesh).  ``mask`` spans x's
+    columns."""
+    if mesh is None:
+        return scaled_accum(x, weights, mask, use_kernel)
+    return _sharded_sum(lambda xs, ws: scaled_accum(xs, ws, mask, use_kernel),
+                        x, weights, mesh, cohort_2d)
 
 
 def accumulate_quant(x: torch.Tensor, weights: torch.Tensor,
                      wtab: torch.Tensor, seg: torch.Tensor,
-                     mask: torch.Tensor, use_kernel: Optional[bool] = None
-                     ) -> torch.Tensor:
+                     mask: torch.Tensor, use_kernel: Optional[bool] = None,
+                     mesh=None, cohort_2d: bool = False) -> torch.Tensor:
     """Σ_c weights[c]·wtab[c, seg[n]]·x[c, n]·mask[n]: the per-client
     weight folds into the (m, S) table before the one launch, so the
-    quantized rows are read once."""
-    return quant_accum(x, wtab * weights[:, None], seg, mask, use_kernel)
+    quantized rows are read once.  ``seg`` and ``mask`` span x's columns
+    (a rank's slice of the segment map in the 2-D layout); the mesh sum as
+    ``accumulate``'s."""
+    def local(xs, ws):
+        return quant_accum(xs, wtab * ws[:, None], seg, mask, use_kernel)
+    if mesh is None:
+        return local(x, weights)
+    return _sharded_sum(local, x, weights, mesh, cohort_2d)
 
 
 def trimmed_sumsq(w: torch.Tensor, t: torch.Tensor,

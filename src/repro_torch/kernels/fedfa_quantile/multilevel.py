@@ -8,6 +8,13 @@ summed strictly below the chosen bin at inner levels and inclusively at the
 last, they give S(v) = Σ x²·[x <= v] for both bracketing statistics without
 another pass.  One CUDA kernel (``csrc/hist_level.cu``) builds a level's
 histogram planes; the level loop, cumulative sums and bin pick stay here.
+
+The kernel keeps at most ``MAX_SEGMENTS`` segments' planes in shared
+memory, so the level loop cuts the segments into fixed groups of at most
+that many by segment id and launches once per group on the group's
+columns.  On a mesh the level's planes are all-reduced over ``model``
+before the bin pick, so every rank follows the same search while holding
+only its own columns.
 """
 from __future__ import annotations
 
@@ -84,7 +91,7 @@ def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
 def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
                             seg_len: torch.Tensor, q_seg: torch.Tensor,
                             scales: Optional[torch.Tensor] = None,
-                            use_kernel: Optional[bool] = None):
+                            use_kernel: Optional[bool] = None, mesh=None):
     """Exact per-(row, segment) (threshold, trimmed Σw²) over flat rows.
 
     x (m, C) f32; seg_id (C,) int32 maps each column to its segment (−1
@@ -96,9 +103,19 @@ def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
     per segment, so t and ss are in dequantized units.  int8 / bf16 rows
     without scales are upcast to f32.  ``use_kernel`` reaches every
     level's ``hist_level``.
+
+    With more than ``MAX_SEGMENTS`` segments, seg_id must not decrease
+    apart from −1 columns at its end (a ``FlatIndex`` layout), so that
+    each group of segments owns one run of columns.
+
+    ``mesh``: x holds this rank's columns of rows split over ``model``
+    (seg_len still counts whole segments); each level's planes are
+    all-reduced over ``model`` — one all-reduce a level, every rank the
+    same — and t, ss are the whole rows'.
     """
     t, ss, _ = _search(x, seg_id, seg_len, q_seg, scales,
-                       functools.partial(hist_level, use_kernel=use_kernel))
+                       functools.partial(hist_level, use_kernel=use_kernel),
+                       mesh)
     return t, ss
 
 
@@ -111,12 +128,65 @@ def level_prefixes(x: torch.Tensor, seg_id: torch.Tensor,
     return _search(x, seg_id, seg_len, q_seg, scales, ref.hist_level_ref)[2]
 
 
-def _search(x, seg_id, seg_len, q_seg, scales, hist):
-    """The level loop, each level's planes from ``hist``; returns t, ss and
-    the [(shift, hi)] it histogrammed."""
+def segment_groups(seg_id: torch.Tensor, S: int):
+    """[(g0, g1, c0, c1)]: segments [g0, g1) in groups of at most
+    ``MAX_SEGMENTS`` by id, each with its run of columns [c0, c1) of
+    seg_id (empty where this slice holds none of the group)."""
+    C = seg_id.shape[0]
+    if S <= MAX_SEGMENTS:
+        return [(0, S, 0, C)]
+    key = torch.where(seg_id < 0, S, seg_id)
+    if bool(torch.any(key[1:] < key[:-1])):
+        raise ValueError("segment ids must not decrease (apart from −1 at "
+                         "the end) to be cut into groups")
+    bounds = list(range(0, S, MAX_SEGMENTS)) + [S]
+    c = torch.searchsorted(key, torch.tensor(bounds, dtype=key.dtype,
+                                             device=key.device)).tolist()
+    return [(bounds[i], bounds[i + 1], c[i], c[i + 1])
+            for i in range(len(bounds) - 1)]
+
+
+def _grouped(hist, x, seg_id, hi, shift, scales, groups):
+    """One level's planes over every group: a ``hist`` call on each group's
+    columns with its segments renumbered from 0, written into one
+    (m, 2, S, 256) pair (zero for a group with no columns here)."""
+    if len(groups) == 1 and groups[0][2:] == (0, x.shape[1]):
+        return hist(x, seg_id, hi, shift, scales)
+    m, S = x.shape[0], hi.shape[2]
+    cnt = torch.zeros((m, 2, S, _BINS), dtype=torch.int32, device=x.device)
+    sq = torch.zeros((m, 2, S, _BINS), dtype=torch.float32, device=x.device)
+    for g0, g1, c0, c1 in groups:
+        if c1 <= c0:
+            continue
+        c, q = hist(x[:, c0:c1].contiguous(),
+                    (seg_id[c0:c1] - g0).to(torch.int32),
+                    hi[:, :, g0:g1].contiguous(), shift,
+                    None if scales is None else scales[:, g0:g1].contiguous())
+        cnt[:, :, g0:g1] = c
+        sq[:, :, g0:g1] = q
+    return cnt, sq
+
+
+def _all_reduce_planes(cnt, sq, mesh):
+    """Sum a level's count and Σx² planes over ``model`` in one all-reduce:
+    both ride in one f64 tensor (counts stay exact; each Σx² is the f32
+    rounding of the shards' f64 sum)."""
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sharding.cohort import MODEL_AXIS
+    both = coll.all_reduce(torch.stack([cnt.to(torch.float64),
+                                        sq.to(torch.float64)]),
+                           mesh, MODEL_AXIS)
+    return both[0].to(torch.int32), both[1].to(torch.float32)
+
+
+def _search(x, seg_id, seg_len, q_seg, scales, hist, mesh=None):
+    """The level loop, each level's planes from ``hist`` (over the segment
+    groups, summed over ``model`` with a mesh); returns t, ss and the
+    [(shift, hi)] it histogrammed."""
     x, _ = kernel_rows(x, scales)     # once, not at every level
     m = x.shape[0]
     S = seg_len.shape[0]
+    groups = segment_groups(seg_id, S)
     r0, r1, frac = ref.interpolation_ranks(q_seg, seg_len[None, :])
     rank = torch.stack([r0, r1], dim=1)                        # (m, 2, S)
     lo = torch.zeros((m, 2, S), dtype=torch.int64, device=x.device)
@@ -126,7 +196,9 @@ def _search(x, seg_id, seg_len, q_seg, scales, hist):
         shift = 24 - 8 * j
         hi = (lo >> min(shift + 8, 31)).to(torch.int32)
         levels.append((shift, hi))
-        cnt, sq = hist(x, seg_id, hi, shift, scales)
+        cnt, sq = _grouped(hist, x, seg_id, hi, shift, scales, groups)
+        if mesh is not None:
+            cnt, sq = _all_reduce_planes(cnt, sq, mesh)
         cum = torch.cumsum(cnt, dim=-1)
         # smallest bin whose cumulative count exceeds the rank
         bstar = torch.sum(cum <= rank[..., None], dim=-1)

@@ -103,6 +103,6 @@ def test_graft_and_norms_match_reference(seed):
                       for c in range(len(archs))])
     jd, jf = jax.vmap(lambda mk: jflat._density_and_fraction(
         JCFG, jindex, mk))(jmasks)
-    norms = flat._cohort_norms(index, xg * dens, fr, 0.95)
+    norms = torch.sqrt(flat._cohort_stats(index, xg * dens, fr, 0.95)[1])
     jn = jflat._cohort_norms(jindex, jxg * jd, jf, 0.95, False, True)
     np.testing.assert_allclose(norms.numpy(), np.asarray(jn), rtol=1e-5)

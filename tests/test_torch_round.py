@@ -125,15 +125,16 @@ def test_cli_runs_on_cpu(driver, tmp_path):
     assert 0.0 <= res["final_acc"] <= 1.0
 
 
-# flags the port refuses on the CPU, with what it raises: the mesh flags,
-# FL of internvl2-76b, whose batches carry no patches (ROADMAP queue 3
-# item 27), the kernels asked for without a card, the paper transformer's
-# cut (3 query heads over 2 kv heads), and FL of whisper-base, whose
-# batches carry no frames (item 25)
+# flags the port refuses on the CPU, with what it raises: an unknown mesh,
+# meshes of more ranks than are running (one here), FL of internvl2-76b,
+# whose batches carry no patches (ROADMAP queue 3 item 27), the kernels
+# asked for without a card, the paper transformer's cut (3 query heads
+# over 2 kv heads), and FL of whisper-base, whose batches carry no frames
+# (item 25)
 _REFUSED = [
-    (["--mesh", "host"], NotImplementedError, "not yet ported"),
-    (["--mesh", "production"], NotImplementedError, "not yet ported"),
-    (["--mesh-shape", "2x2"], NotImplementedError, "not yet ported"),
+    (["--mesh", "2y2"], ValueError, "unknown mesh"),
+    (["--mesh", "production"], ValueError, "needs 256 ranks but 1 is"),
+    (["--mesh-shape", "2x2"], ValueError, "needs 4 ranks but 1 is"),
     (["--arch", "internvl2-76b"], ValueError, "patches"),
     (["--use-kernel", "on"], RuntimeError, "use_kernel=True"),
     (["--mode", "dense", "--arch", "fedfa-paper-transformer"], ValueError,

@@ -187,7 +187,7 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    for pkg in ("sim", "checkpoint", "examples"):
+    for pkg in ("sim", "checkpoint", "examples", "sharding"):
         assert REPO / "src" / "repro_torch" / pkg / "__init__.py" in files
     for path in files:
         text = path.read_text()
