@@ -120,7 +120,12 @@
    launches), then smollm-135m with a long prompt (batch 8, prompt 4096,
    32 new tokens: ``flash_attention`` exactly once per layer, 30 times,
    and nothing else); prints prefill ms, decode ms per token, tokens/s and
-   peak memory of each run and of a second, warm run of the same engine.
+   peak memory of each run and of a second, warm run of the same engine,
+   then the achieved rate (``achieved_rates``): ``launch.costs``'
+   whole-step FLOPs of the dense path's step and of this 8 x 4,096
+   prefill (less the lm head at every position but the last, which the
+   prefill does not compute) over their measured times, with the card's
+   name and limit.
    Then phi3.5-moe at its published width cut to 4 layers (5.46B
    parameters, seeded random f32 weights on the card): a chunked prefill
    (``make_prefill_step``) of 2 prompts of 8,192 tokens in 8 chunks of
@@ -162,10 +167,9 @@
    a 1 x 1 mesh over NCCL in this process aggregates a fixed full-size
    smollm-135m cohort (m = 8 seeded rows) twice through the mesh code,
    with the unsharded aggregation's launches by shape, its collectives
-   counted exactly, and its global bit-equal wherever the unsharded
-   aggregation is bit-equal to itself (``hist_level`` adds its blocks'
-   f32 sums with atomics) and within 8 ulp of the sums' magnitude
-   everywhere; then a 2 x 2 mesh of 4 spawned processes on the card
+   counted exactly, and its global bit-equal to the unsharded
+   aggregation's, which is bit-equal to itself (``hist_level``'s planes
+   are exact integers); then a 2 x 2 mesh of 4 spawned processes on the card
    (gloo, each on cuda:0) aggregates a seeded m = 7 cohort (one pad row)
    at f32 and int8, runs 2 resident rounds at m = 8 and one int8 async
    merge (parity mode), and writes a checkpoint from the model-sharded
@@ -175,8 +179,10 @@
    collectives (one all-gather a round, 2 N/M all-reduces over ``data``,
    4 histogram all-reduces over ``model``) are checked exactly; then this
    process holds it against the unsharded runs: thresholds and int8
-   scales bit-equal, Σx² at rtol 1e-5, the globals within 8 ulp of the
-   sums' magnitude, the rounds and the merge through ``round_close``.
+   scales bit-equal, Σx² bit-equal to the unsharded segmented search's
+   (and at rtol 1e-5 to the per-leaf path's), the globals within 8 ulp of
+   the sums' magnitude (the shards' partial sums of M' and Γ), the rounds
+   and the merge through ``round_close``.
 9. Holds each kernel against its plain PyTorch version at the main path's
    shapes (weighted sums within 1e-5 of the summed magnitudes; thresholds
    bit-equal; trimmed sums of squares at rtol 1e-5; the SSD's y and state
@@ -191,8 +197,9 @@
    also against ``quantile_fused``'s Σx² at that kernel's thresholds;
    ``hist_level`` at every multilevel row shape of the main path and each
    of the four levels, with the prefixes the plain level loop finds
-   (counts equal, Σx² at rtol 1e-5; at the second level also with the two
-   planes' prefixes differing), and its per-round total (the launches
+   (counts, integer Σx² planes and their f32 scaling equal to the plain
+   version's; at the second level also with the two planes' prefixes
+   differing), and its per-round total (the launches
    beside each shape are the wrappers' counts by shape on the main path);
    ``flash_attention`` also against the 3xTF32 emulation of its f32 route
    (within 1e-5), at the JAX package's sweep of shapes and masks, on a
@@ -1857,6 +1864,39 @@ def dense_path(kernels, steps: int = 10) -> dict:
             "minicpm-2b_full_size": dense_state_estimate("minicpm-2b")}
 
 
+def achieved_rates(dense: dict, prefill: dict, card: str) -> dict:
+    """``launch.costs.step_flops`` (the reference's analytic model) of the
+    dense path's step (smollm-135m, a train step of 8 x 64) and of the
+    smollm-135m 8 x 4,096 prefill, over the times those phases measured:
+    the achieved TFLOP/s of each, the prefill's cold and warm.  The
+    model's count puts the lm head at every position; ``prefill`` computes
+    logits at the last one only, so the prefill's rate divides the count
+    less the head at the other B·(S − 1) positions (``model_flops`` keeps
+    the whole count)."""
+    from repro_torch.configs import SMOLLM_135M
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import costs
+    cfg = SMOLLM_135M
+    train = costs.step_flops(cfg, InputShape(
+        "dense", dense["seq_len"], dense["batch"], "train"))
+    B, S = prefill["batch"], prefill["prompt_len"]
+    model_pre = costs.step_flops(cfg, InputShape("prefill", S, B, "prefill"))
+    pre = model_pre - 2.0 * B * (S - 1) * cfg.d_model * cfg.padded_vocab
+    check((prefill["arch"], prefill["batch"], prefill["prompt_len"])
+          == ("smollm-135m", 8, 4096), "achieved rate: not the 8 x 4,096 "
+          "smollm-135m prefill")
+    rate = lambda flops, ms: flops / (ms * 1e-3) / 1e12
+    return {"card": card, "dense_step": {
+        "flops": train, "ms": dense["ms_per_step"],
+        "tflop_per_s": rate(train, dense["ms_per_step"])},
+        "prefill_8x4096": {
+            "flops": pre, "model_flops": model_pre,
+            "ms": prefill["prefill_ms"],
+            "tflop_per_s": rate(pre, prefill["prefill_ms"]),
+            "warm_ms": prefill["warm"]["prefill_ms"],
+            "warm_tflop_per_s": rate(pre, prefill["warm"]["prefill_ms"])}}
+
+
 def dense_state_estimate(arch: str) -> dict:
     """What a full-size dense AdamW step of ``arch`` holds at its peak,
     counted from the parameter shapes (nothing allocated): f32 params,
@@ -2228,13 +2268,16 @@ def hist_level_rows(x, s, q, dtype: str, by_shape: dict, total: dict,
                     per_round: float = None, **extra) -> list:
     """``hist_level`` on the rows x (R, L) (per-row scales ``s`` if
     quantized) with levels q (R, 1), at each of the four levels with the
-    prefixes the plain level loop finds for them: counts equal to the plain
-    version's, Σx² within rtol 1e-5; at the second level also with the
-    ceil path's prefix moved to the next bin, so that the two planes
-    differ; then the whole multilevel quantile against the sorting plain
-    version, thresholds bit-equal.  Each level is timed beside its
-    launches (``by_shape``, counted by shape over the path's 2 rounds),
-    and ``total`` sums launches × time over a round: ``per_round``
+    prefixes the plain level loop finds for them: counts, exact integer
+    Σx² planes and their f32 scaling equal to the plain version's; at the
+    second level also with the ceil path's prefix moved to the next bin,
+    so that the two planes differ; then the whole multilevel quantile
+    against the sorting plain version, thresholds bit-equal.  Each level
+    is timed beside its launches (``by_shape``, counted by shape over the
+    path's 2 rounds) as the level loop calls it (``hist_level_planes``),
+    its scaling to f32 (``ref.scale_sums``) beside it,
+    and ``total`` sums launches × (kernel + scaling) time over a round, as
+    the level loop pays it, and the scaling's share: ``per_round``
     launches of each level (x is one leaf's rows: 1), or by default
     every launch of x's shape in a round (x stands for all of them)."""
     from repro_torch.kernels.fedfa_quantile import multilevel, ref
@@ -2251,25 +2294,32 @@ def hist_level_rows(x, s, q, dtype: str, by_shape: dict, total: dict,
             moved[:, 1] += 1
             cases.append(moved)
         for h in cases:
-            cnt, sq = multilevel.hist_level(x, seg1, h, shift, sc)
-            pcnt, psq = ref.hist_level_ref(x, seg1, h, shift, sc)
+            cnt, iq = multilevel.hist_level_planes(x, seg1, h, shift, sc)
+            pcnt, piq = ref.hist_level_planes_ref(x, seg1, h, shift, sc)
             what = (f"hist_level {dtype} {(R, L)} level {j}"
                     + ("" if h is hi else ", planes differing"))
             check(torch.equal(cnt, pcnt), f"{what}: counts differ")
-            torch.testing.assert_close(sq, psq, rtol=1e-5, atol=0,
-                                       msg=f"{what}: sums differ")
+            check(torch.equal(iq, piq), f"{what}: integer sums differ")
+            sq = multilevel.hist_level(x, seg1, h, shift, sc)[1]
+            psq = ref.hist_level_ref(x, seg1, h, shift, sc)[1]
+            check(torch.equal(sq, psq), f"{what}: sums differ")
             err = float((sq - psq).abs().max())
             total["err"] = max(total["err"], err)
-            del cnt, sq, pcnt, psq
+            del cnt, iq, sq, pcnt, piq, psq
         b, by = bound(R * L * BYTES[dtype] + (L + R * 2) * 4
                       + (0 if sc is None else R * 4)
-                      + R * 2 * 256 * 8, R * L)
-        ms = time_ms(lambda: multilevel.hist_level(x, seg1, hi, shift, sc),
-                     10)
-        plain = time_ms(lambda: ref.hist_level_ref(x, seg1, hi, shift, sc),
-                        2)
+                      + R * 2 * 256 * 12, R * L)
+        ms = time_ms(lambda: multilevel.hist_level_planes(x, seg1, hi, shift,
+                                                          sc), 10)
+        plain = time_ms(lambda: ref.hist_level_planes_ref(x, seg1, hi, shift,
+                                                          sc), 2)
+        planes = multilevel.hist_level_planes(x, seg1, hi, shift, sc)[1]
+        scale = time_ms(lambda: ref.scale_sums(planes, hi, shift), 10)
+        del planes
         n = by_shape.get((R, L, shift), 0)
-        for key, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b)):
+        # the level loop pays the kernel and the scaling
+        for key, val in (("ms", ms + scale), ("scale_ms", scale),
+                         ("plain_ms", plain), ("bound_ms", b)):
             total[key] += (n / 2 if per_round is None   # 2 rounds
                            else per_round) * val
         out.append({
@@ -2278,7 +2328,8 @@ def hist_level_rows(x, s, q, dtype: str, by_shape: dict, total: dict,
             "source": "src/repro_torch/csrc/hist_level.cu",
             "replaces": "src/repro/kernels/fedfa_quantile/multilevel.py:107",
             "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": None})
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "scale_to_f32_ms": scale})
     t, ss = multilevel.row_trimmed_stats_multilevel(x, q[:, 0], s)
     pt, pss = ref.row_trimmed_stats_ref(ref.dequantize_rows(x, s), q[:, 0])
     check(torch.equal(t.view(torch.int32), pt.view(torch.int32)),
@@ -2289,13 +2340,16 @@ def hist_level_rows(x, s, q, dtype: str, by_shape: dict, total: dict,
 
 def hist_round_row(dtype: str, launches: int, total: dict,
                    **extra) -> dict:
-    """The round's ``hist_level`` row: launches × time over the 2 rounds."""
+    """The round's ``hist_level`` row: launches × time over the 2 rounds,
+    each launch with its level's scaling to f32 (``scale_to_f32_ms`` of
+    it)."""
     return {
         "name": "hist_level", "dtype": dtype, **extra, "shape": "round",
         "route": "cuda", "source": "src/repro_torch/csrc/hist_level.cu",
         "replaces": "src/repro/kernels/fedfa_quantile/multilevel.py:107",
         "launches": launches, "rounds": 2, "max_abs_err": total["err"],
-        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "ms": total["ms"], "scale_to_f32_ms": total["scale_ms"],
+        "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"], "bound_by": "bytes",
         "library_ms": None}
 
@@ -2310,7 +2364,8 @@ def hist_checks(launches: dict, shapes: dict) -> list:
     _, _, multi = main_path_shapes(8)
     out = []
     for dtype in ("f32", "int8", "bf16"):
-        total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+        total = {"ms": 0.0, "scale_ms": 0.0, "plain_ms": 0.0,
+                 "bound_ms": 0.0, "err": 0.0}
         for R, L in multi:
             if dtype == "f32":
                 x, s = torch.randn((R, L), generator=gen, device="cuda"), None
@@ -2435,7 +2490,8 @@ def fl_path_kernel_rows(hist: dict, arch: str, dtype: str, kernels,
         "bound_by": "bytes", "library_ms": None})
     # hist_level on the multilevel leaves' rows (embedding, in_proj,
     # out_proj), at their levels
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    total = {"ms": 0.0, "scale_ms": 0.0, "plain_ms": 0.0,
+             "bound_ms": 0.0, "err": 0.0}
     for rows, q, s, *_ in calls["row_trimmed_stats_multilevel"]:
         rows, q = rows.cuda(), q.cuda()
         s = None if s is None else s.cuda()
@@ -3004,7 +3060,7 @@ def agg_counts_expected(n_cols: int, rows: int, S: int) -> dict:
     """The 2-D aggregation's collectives (f32 and quantized alike): one N/M
     all-reduce over ``data`` for each of M' and Γ, the α mean's (S + 1)
     sums, and one histogram all-reduce over ``model`` a level (count and
-    Σx² planes in f64); no all-gather, no reduce-scatter."""
+    integer Σx² planes in int64); no all-gather, no reduce-scatter."""
     return {f"all_reduce data {n_cols}": 2, f"all_reduce data {S + 1}": 1,
             f"all_reduce model {2 * rows * 2 * S * 256}": 4}
 
@@ -3015,10 +3071,9 @@ def mesh_one_rank(kernels, tmp: str) -> dict:
     training, whose embedding backward is not bit-stable) through the mesh
     code, against the unsharded aggregation from the same global; the
     same launches by shape; the norms pass's thresholds bit-equal; the
-    global bit-equal wherever the unsharded aggregation is bit-equal to
-    itself (``hist_level`` sums its blocks' Σx² planes with f32 atomics,
-    whose order may vary), and within 8 ulp of the sums' magnitude
-    everywhere."""
+    global bit-equal to the unsharded aggregation's, and that one to a
+    second unsharded aggregation of the same inputs (``hist_level``'s
+    planes are exact integers, summed in any order)."""
     import torch.distributed as dist
     from repro_torch.core import flat
     from repro_torch.core.fedfa import STRATEGIES
@@ -3054,7 +3109,6 @@ def mesh_one_rank(kernels, tmp: str) -> dict:
             counts = mesh_counts(mesh)
             g_one, by_one = agg(g, x)
             g_again, _ = agg(g, x)
-            scale, _ = agg(torch.zeros_like(g), x.abs())
             # the norms pass's thresholds come from exact counts: bit-equal
             cols = flat.pool_cols(index, mesh, None)
             dens, fracs = flat._density_rows(cfg, index, masks, cols, "cuda")
@@ -3068,7 +3122,6 @@ def mesh_one_rank(kernels, tmp: str) -> dict:
             check(torch.equal(t_mesh, t_one), f"1 x 1 mesh round {rnd}: "
                   f"thresholds not bit-equal to the unsharded pass")
             err = (g_mesh - g_one).abs()
-            within = bool((err <= 8 * EPS32 * scale).all())
             differ, self_differ = int((g_mesh != g_one).sum()), \
                 int((g_again != g_one).sum())
             check(by_mesh == by_one, f"1 x 1 mesh launches {by_mesh} != "
@@ -3076,10 +3129,11 @@ def mesh_one_rank(kernels, tmp: str) -> dict:
             check(counts == {f"all_reduce data {index.n_padded}": 2,
                              f"all_reduce data {index.n_segments + 1}": 1},
                   f"1 x 1 mesh collectives {counts}")
-            check(within and (self_differ > 0 or differ == 0),
-                  f"1 x 1 mesh round {rnd}: {differ} elements differ from "
-                  f"the unsharded aggregation (which differs from itself in "
-                  f"{self_differ}), largest {float(err.max()):.3g}")
+            check(self_differ == 0, f"1 x 1 mesh round {rnd}: two unsharded "
+                  f"aggregations differ in {self_differ} elements")
+            check(differ == 0, f"1 x 1 mesh round {rnd}: {differ} elements "
+                  f"differ from the unsharded aggregation, largest "
+                  f"{float(err.max()):.3g}")
             rounds.append({"bit_equal": differ == 0, "thresholds_bit_equal":
                            True, "elements_differing":
                            differ, "unsharded_self_differing": self_differ,
@@ -3087,7 +3141,7 @@ def mesh_one_rank(kernels, tmp: str) -> dict:
                            "launches_by_shape": json_ready(by_mesh),
                            "collectives": counts})
             g = g_one      # round 2 from the unsharded round's global
-            del g_mesh, g_again, scale, err
+            del g_mesh, g_again, err
         return {"mesh": "1x1", "backend": mesh.backend, "rounds": rounds}
     finally:
         dist.destroy_process_group()
@@ -3285,10 +3339,13 @@ def mesh_two_by_two(tmp: str) -> list:
 
 def mesh_references(ranks: list, tmp: str) -> dict:
     """The 2 x 2 mesh against this process's unsharded runs of the same
-    work: thresholds bit-equal and Σx² at rtol 1e-5 (the shards sum the
-    planes in another order), the quantized scales bit-equal, the merged
-    globals within 8 ulp of the sums' magnitude; the rounds and the async
-    merge through ``round_close`` (f32: no admission step allowed)."""
+    work: thresholds bit-equal; Σx² bit-equal to the unsharded run of the
+    2-D pass's search (the segmented multilevel quantile on whole rows:
+    the shards' integer planes sum to its planes exactly) and at rtol 1e-5
+    to the per-leaf path's; the quantized scales bit-equal, the merged
+    globals within 8 ulp of the sums' magnitude (the shards' partial sums
+    of M' and Γ); the rounds and the async merge through ``round_close``
+    (f32: no admission step allowed)."""
     from repro_torch.core import flat
     from repro_torch.core.async_round import AsyncConfig, AsyncEngine
     from repro_torch.core.fedfa import STRATEGIES
@@ -3313,18 +3370,24 @@ def mesh_references(ranks: list, tmp: str) -> dict:
     g = cohort_global(index)
     kw = dict(STRATEGIES["fedfa"], trim=0.95)
     dens, fracs = flat._density_rows(cfg, index, masks, slice(0, n), "cuda")
-    t, ss = flat._cohort_stats(index, flat._graft_flat(index, x, gmaps)
-                               * dens, fracs, 0.95)
-    del dens
+    xm = flat._graft_flat(index, x, gmaps) * dens
+    whole = slice(0, index.n_padded)
+    t, ss = flat._cohort_stats(index, xm, fracs, 0.95)
+    ss_seg = flat._cohort_stats(index, xm, fracs, 0.95, cols=whole)[1]
+    del dens, xm
     state = fresh_quant_state(index, MESH_AGG_M, "int8", "cuda")
     flat.admit_quantized(index, cfg, x, masks, gmaps, True, state, "int8")
     tq, ssq = flat._cohort_stats(index, state[0], fracs, 0.95, state[1])
+    ssq_seg = flat._cohort_stats(index, state[0], fracs, 0.95, state[1],
+                                 cols=whole)[1]
     for o in ranks:
         got = torch.load(f"{tmp}/stats_{o['rank']}.pt")
         r0 = 4 * o["coord"][0]
         k = min(4, MESH_AGG_M - r0)
         for a, b, what in ((got["t"], t, "t"), (got["tq"], tq, "tq"),
-                           (got["scales"], state[1], "scales")):
+                           (got["scales"], state[1], "scales"),
+                           (got["ss"], ss_seg, "ss"),
+                           (got["ssq"], ssq_seg, "ssq")):
             check(torch.equal(a[:k], b[r0:r0 + k].cpu()),
                   f"2 x 2 rank {o['rank']}: {what} not bit-equal")
         for a, b, what in ((got["ss"], ss, "ss"), (got["ssq"], ssq, "ssq")):
@@ -3430,10 +3493,9 @@ def mesh_kernel_rows(ranks: list) -> list:
     cnt, sq = multilevel.hist_level(xs, sg, hi, 24)
     rc, rs = q_ref.hist_level_ref(xs, sg, hi, 24)
     check(torch.equal(cnt, rc), "hist_level (mesh group): counts differ")
-    check(torch.allclose(sq, rs, rtol=1e-5, atol=0),
-          "hist_level (mesh group): Σx² differ")
+    check(torch.equal(sq, rs), "hist_level (mesh group): Σx² differ")
     C, Sg = c1 - c0, g1 - g0
-    b, by = bound(m * C * 4 + (C + m * 2 * Sg) * 4 + m * 2 * Sg * 256 * 8,
+    b, by = bound(m * C * 4 + (C + m * 2 * Sg) * 4 + m * 2 * Sg * 256 * 12,
                   m * C)
     rows.append({"name": "hist_level", "dtype": "f32",
                  "path": f"2 x 2 mesh, rank 0's widest segment group "
@@ -3443,9 +3505,9 @@ def mesh_kernel_rows(ranks: list) -> list:
                  "shape": [m, C], "level": 0,
                  "launches": f32["hist_level"].get((m, C, 24), 0),
                  "max_abs_err": float((sq - rs).abs().max()),
-                 "ms": time_ms(lambda: multilevel.hist_level(xs, sg, hi, 24),
-                               10),
-                 "plain_ms": time_ms(lambda: q_ref.hist_level_ref(
+                 "ms": time_ms(lambda: multilevel.hist_level_planes(
+                     xs, sg, hi, 24), 10),
+                 "plain_ms": time_ms(lambda: q_ref.hist_level_planes_ref(
                      xs, sg, hi, 24), 2),
                  "bound_ms": b, "bound_by": by, "library_ms": None})
     del xs
@@ -3696,8 +3758,8 @@ def main() -> int:
         timing, g = round_timing(dtype, "mamba2-130m")
         print(json.dumps({"round": timing, "card": card}), flush=True)
         del g
-    print(json.dumps({"dense_path": dense_path(kernels), "card": card}),
-          flush=True)
+    dense = dense_path(kernels)
+    print(json.dumps({"dense_path": dense, "card": card}), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         for dtype in ("f32", "int8"):
             res, eng = async_path(kernels, dtype, ckpt=tmp + "/async"
@@ -3729,6 +3791,10 @@ def main() -> int:
         sp = serve_path(kernels, arch, *shape, expect)
         launches[f"{arch}@{shape[1]}"] = sp["launches"]
         print(json.dumps({"serve_path": sp, "card": card}), flush=True)
+    # the whole-step FLOP counts over the dense step's and the long
+    # prefill's measured times
+    print(json.dumps({"achieved_rate": achieved_rates(dense, sp, card)}),
+          flush=True)
     # phi3.5-moe at its published width, 4 layers: chunked prefill through
     # flash_attention at q offsets, then serving
     phi, phi_row = phi_full_width(kernels, card)

@@ -1,7 +1,8 @@
 """Architecture configuration (own copy of ``repro.configs.base``: the
-dense, ssm, moe, hybrid, audio and vlm families).  The field values, derived
-properties and ``reduced()`` are held equal to the JAX package's by
-``tests/test_torch_static.py``."""
+dense, ssm, moe, hybrid, audio and vlm families) and the assigned input
+shapes.  The field values, derived properties and ``reduced()`` are held
+equal to the JAX package's by ``tests/test_torch_static.py``, the
+parameter counts and shapes by ``tests/test_torch_costs.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -152,6 +153,62 @@ class ArchConfig:
             start += size
         return tuple(bounds)
 
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks + head), the
+        reference's arithmetic as it stands: its SSD term keeps a
+        ``2 * d_state * 0`` and the encoder-decoder's cross attention is
+        counted roughly, per encoder layer."""
+        D, F, V = self.d_model, self.d_ff, self.vocab_size
+        H, K, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        per: dict = {}
+        per["attn"] = D * (H * hd) + 2 * D * (K * hd) + (H * hd) * D + 2 * D
+        per["mlp"] = 3 * D * F + 2 * D
+        if self.moe:
+            e = self.moe
+            per["moe"] = (e.n_experts * 3 * D * e.d_ff_expert
+                          + D * e.n_experts
+                          + (3 * D * F if e.dense_residual else 0) + 2 * D)
+        if self.ssm:
+            s = self.ssm
+            di = s.d_inner(D)
+            per["ssd"] = (D * (2 * di + 2 * s.d_state * 0 + s.n_heads(D))
+                          + di * (2 * s.d_state) + s.d_conv * di + di * D
+                          + 2 * D)
+        if self.rglru:
+            r = self.rglru
+            dr = r.d_rnn(D)
+            per["rglru"] = (D * dr * 2 + r.d_conv * dr + 3 * dr + dr * D
+                            + 2 * D)
+        total = 0
+        for unit, reps in self.stages():
+            for kind in unit:
+                blk = {"attn": per["attn"] + per.get("moe", per["mlp"])
+                       if self.moe else per["attn"] + per["mlp"],
+                       "ssd": per.get("ssd", 0),
+                       "rglru": per.get("rglru", 0) + per["mlp"]}[kind]
+                total += blk * reps
+        total += V * D * (1 if self.tie_embeddings else 2) + D
+        if self.vision:
+            total += self.vision.vit_dim * D + D * D
+        if self.encoder:
+            enc_blk = per["attn"] + per["mlp"]
+            # + the decoder's cross attention, counted roughly
+            total += self.encoder.n_layers * (enc_blk + per["attn"])
+        return total
+
+    def active_param_count(self) -> int:
+        """Per-token active parameters (MoE: top_k experts of all)."""
+        if not self.moe:
+            return self.param_count()
+        e = self.moe
+        n = self.n_repeats_total_layers()
+        all_expert = n * e.n_experts * 3 * self.d_model * e.d_ff_expert
+        act_expert = n * e.top_k * 3 * self.d_model * e.d_ff_expert
+        return self.param_count() - all_expert + act_expert
+
+    def n_repeats_total_layers(self) -> int:
+        return self.n_layers
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
@@ -186,3 +243,22 @@ class ArchConfig:
         if self.attn_window:
             kw["attn_window"] = min(self.attn_window, 128)
         return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One assigned input shape: sequence length, global batch and kind
+    (train | prefill | decode)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                    LONG_500K)}

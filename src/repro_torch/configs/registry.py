@@ -104,6 +104,10 @@ ARCHS = {a.name: a for a in (MINICPM_2B, SMOLLM_135M, ARCTIC_480B,
                              FEDFA_PAPER_TRANSFORMER)}
 
 
+# every registry entry but the paper's own transformer
+ASSIGNED = [a for a in ARCHS if a != "fedfa-paper-transformer"]
+
+
 def get_arch(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise NotImplementedError(

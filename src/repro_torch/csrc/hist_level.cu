@@ -3,7 +3,8 @@
 // histogram of byte (bits(|x|) >> shift) & 0xFF over the elements of
 // segment s whose higher bits (bits >> min(shift + 8, 31)) equal the
 // resolved prefix hi[c, p, s]: per-bin counts (int32, exact) and sums of
-// x^2 (f32).  Columns with seg_id -1 are inert.
+// x^2, exact 64-bit integers in each bin's units (below).  Columns with
+// seg_id -1 are inert.
 //
 // Replaces the TPU kernel repro/kernels/fedfa_quantile/multilevel.py::
 // _hist_call (_hist_level_kernel).  Bound on the H100: device-memory bytes
@@ -26,9 +27,17 @@
 //    the low and the high 16 bits of its squares), each added natively, so
 //    a block's sums are exact and their order does not matter.  (The first
 //    version's block sums were f64 so that a bin's thousands of partial
-//    sums would not lose 1e-5 of it; exact sums lose nothing.)  The block
-//    scales each bin's sum back once, into the global f32 plane with
-//    atomicAdd, whose order across blocks varies as before.
+//    sums would not lose 1e-5 of it; exact sums lose nothing.)
+//  * Exact global planes.  The unit of a bin depends only on the row's
+//    prefix, the shift and the bin, so every block of a row sums a bin in
+//    one unit: each block adds its exact sum into a global 64-bit integer
+//    plane (a native global atomicAdd), and the planes are the same
+//    whatever the order of the blocks, of the columns, or of shards whose
+//    planes are added.  The caller scales each bin once into f32
+//    (repro_torch/kernels/fedfa_quantile/ref.py::scale_sums).  The counts
+//    are int32, so the wrapper refuses rows of 2^31 elements or more; a
+//    square is below 2^(kFrac + 5) units, so a bin's sum over such a row
+//    stays below 2^60.
 //  * Warp-level hot keys.  A warp keeps up to 3 keys (segment, bin) that
 //    many of its lanes hold, with each lane's count and sum for them in
 //    registers; only the other elements go to shared atomics.  At the top
@@ -90,11 +99,6 @@ __device__ __forceinline__ uint32_t fixed_square(float a2, int ef) {
   const uint32_t mant = (b & 0x7FFFFFu) | (ea ? 0x800000u : 0u);
   const int sh = (ea ? ea : 1) + kFrac + 104 - 2 * ef;
   return mant ? mant << sh : 0;
-}
-
-// 2^(2 ef - 254 - kFrac): the value of one unit of a bin's sum
-__device__ __forceinline__ double fixed_unit(int ef) {
-  return __longlong_as_double((int64_t)(2 * ef - 254 - kFrac + 1023) << 52);
 }
 
 // A bin's exact sum, kept in shared memory as two 32-bit words, the sums
@@ -199,7 +203,8 @@ __global__ void __launch_bounds__(kThreads)
 hist_level_kernel(const T* __restrict__ x, const int* __restrict__ seg_id,
                   const float* __restrict__ sc, const int* __restrict__ hi,
                   int64_t C, int S, int shift, int64_t chunk,
-                  int* __restrict__ cnt, float* __restrict__ sq) {
+                  int* __restrict__ cnt,
+                  unsigned long long* __restrict__ sq) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float s_scale[kMaxSegments];
   __shared__ unsigned s_hi[2][kMaxSegments];
@@ -297,11 +302,11 @@ hist_level_kernel(const T* __restrict__ x, const int* __restrict__ seg_id,
   __syncthreads();
 
   // merge the warps' planes (exact integers, in any order), plane 1 of an
-  // agreeing segment being plane 0, and scale each bin's sum back
+  // agreeing segment being plane 0, into the global integer planes
   int* gc = cnt + row * nb;
-  float* gs = sq + row * nb;
+  unsigned long long* gs = sq + row * nb;
   for (int i = threadIdx.x; i < nb; i += kThreads) {
-    const int p = i / (S * kBins), s = (i / kBins) % S, bin = i % kBins;
+    const int p = i / (S * kBins), s = (i / kBins) % S;
     const int src = (p == 1 && s_agree[s]) ? i - S * kBins : i;
     int n = 0;
     unsigned long long t = 0;
@@ -311,17 +316,16 @@ hist_level_kernel(const T* __restrict__ x, const int* __restrict__ seg_id,
       t += ((unsigned long long)shi[w * nb + src] << 16) + slo[w * nb + src];
     }
     if (n) {
-      const unsigned lo_bits =
-          (hs < 31 ? s_hi[p][s] << hs : 0u) | ((unsigned)bin << shift);
       atomicAdd(gc + i, n);
-      atomicAdd(gs + i, (float)((double)t * fixed_unit(lo_bits >> 23)));
+      atomicAdd(gs + i, t);
     }
   }
 }
 
 template <typename T, bool kScaled, int V, bool kPrivate>
 int launch_with(const void* x, const int* seg_id, const float* sc,
-                const int* hi, int* cnt, float* sq, int64_t m, int64_t C,
+                const int* hi, int* cnt, unsigned long long* sq, int64_t m,
+                int64_t C,
                 int S, int shift, int sms, cudaStream_t stream) {
   const size_t smem = (size_t)(kPrivate ? kWarps : 1) * 2 * S * kBins *
                       (sizeof(int) + 2 * sizeof(unsigned));
@@ -350,8 +354,8 @@ int launch_with(const void* x, const int* seg_id, const float* sc,
 
 template <typename T, bool kScaled>
 int launch(const void* x, const int* seg_id, const float* sc, const int* hi,
-           int* cnt, float* sq, int64_t m, int64_t C, int S, int shift,
-           int sms, cudaStream_t s) {
+           int* cnt, unsigned long long* sq, int64_t m, int64_t C, int S,
+           int shift, int sms, cudaStream_t s) {
   // 16-byte loads of f32 and bf16 rows, 8-byte ones of int8 rows (whose
   // 16 column ids per 16 bytes would take the registers)
   constexpr int V = sizeof(T) == 1 ? 8 : 16 / sizeof(T);
@@ -371,11 +375,13 @@ int launch(const void* x, const int* seg_id, const float* sc, const int* hi,
 
 }  // namespace
 
-// cnt and sq must be zeroed by the caller: blocks add into them.
+// cnt (int32) and sq (64-bit integers) must be zeroed by the caller: blocks
+// add into them.
 // dtype: 0 = f32 rows, 1 = int8, 2 = bf16.  sc (m, S) dequantizes the rows;
 // it may be null only for f32 rows.  1 <= S <= 37.
 extern "C" int hist_level(const void* x, int dtype, const int* seg_id,
-                          const float* sc, const int* hi, int* cnt, float* sq,
+                          const float* sc, const int* hi, int* cnt,
+                          unsigned long long* sq,
                           int64_t m, int64_t C, int S, int shift, int sms,
                           void* stream) {
   if (m == 0 || C == 0) return (int)cudaGetLastError();

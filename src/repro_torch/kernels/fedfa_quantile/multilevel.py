@@ -7,14 +7,18 @@ prefix resolved so far, so four levels resolve the exact order statistics
 summed strictly below the chosen bin at inner levels and inclusively at the
 last, they give S(v) = Σ x²·[x <= v] for both bracketing statistics without
 another pass.  One CUDA kernel (``csrc/hist_level.cu``) builds a level's
-histogram planes; the level loop, cumulative sums and bin pick stay here.
+histogram planes, whose Σx² are exact integers in each bin's units
+(``ref.fixed_square``), so their order of addition does not matter; the
+level loop, the scaling to f32 (``ref.scale_sums``), cumulative sums and
+bin pick stay here.
 
 The kernel keeps at most ``MAX_SEGMENTS`` segments' planes in shared
 memory, so the level loop cuts the segments into fixed groups of at most
 that many by segment id and launches once per group on the group's
 columns.  On a mesh the level's planes are all-reduced over ``model``
 before the bin pick, so every rank follows the same search while holding
-only its own columns.
+only its own columns: the integer planes sum exactly, so the search and
+its Σx² are the unsharded ones bit for bit.
 """
 from __future__ import annotations
 
@@ -54,14 +58,16 @@ def kernel_rows(x: torch.Tensor, scale: Optional[torch.Tensor]):
     return x, DTYPE_CODES[x.dtype]
 
 
-def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
-               shift: int, sc: Optional[torch.Tensor] = None,
-               use_kernel: Optional[bool] = None):
+def hist_level_planes(x: torch.Tensor, seg_id: torch.Tensor,
+                      hi: torch.Tensor, shift: int,
+                      sc: Optional[torch.Tensor] = None,
+                      use_kernel: Optional[bool] = None):
     """One level's histogram planes: x (m, C) f32, seg_id (C,) int32 (−1
-    inert), hi (m, 2, S) int32 -> counts (m, 2, S, 256) int32 and Σx²
-    (m, 2, S, 256) f32 (see ``ref.hist_level_ref``).  With ``sc`` (m, S)
-    f32 the rows may be int8 or bf16, binned as |x·sc[row, seg]|; without
-    it such rows are upcast to f32 first."""
+    inert), hi (m, 2, S) int32 -> counts (m, 2, S, 256) int32 and exact
+    Σx² (m, 2, S, 256) int64 in each bin's units (see
+    ``ref.hist_level_planes_ref``; ``ref.scale_sums`` makes them f32).
+    With ``sc`` (m, S) f32 the rows may be int8 or bf16, binned as
+    |x·sc[row, seg]|; without it such rows are upcast to f32 first."""
     if x.dim() != 2 or hi.dim() != 3:
         raise ValueError(f"hist_level takes x (m, C) and hi (m, 2, S), got "
                          f"{tuple(x.shape)} and {tuple(hi.shape)}")
@@ -74,18 +80,29 @@ def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
     if sc is not None:
         check_input("sc", sc, torch.float32, (m, S), x.device)
     if runs_plain(x, use_kernel):
-        return ref.hist_level_ref(x, seg_id, hi, shift, sc)
+        return ref.hist_level_planes_ref(x, seg_id, hi, shift, sc)
     if not 1 <= S <= MAX_SEGMENTS or m > 65535:
         raise ValueError(f"hist_level takes 1..{MAX_SEGMENTS} segments and "
                          f"at most 65535 rows, got S={S}, m={m}")
+    ref.check_row_length(C)
     cnt = torch.zeros((m, 2, S, _BINS), dtype=torch.int32, device=x.device)
-    sq = torch.zeros((m, 2, S, _BINS), dtype=torch.float32, device=x.device)
+    sq = torch.zeros((m, 2, S, _BINS), dtype=torch.int64, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     HIST_LEVEL.launch(x.data_ptr(), code, seg_id.data_ptr(),
                       None if sc is None else sc.data_ptr(), hi.data_ptr(),
                       cnt.data_ptr(), sq.data_ptr(), m, C, S, shift, sms,
                       stream_of(x), shape=(m, C, shift))
     return cnt, sq
+
+
+def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
+               shift: int, sc: Optional[torch.Tensor] = None,
+               use_kernel: Optional[bool] = None):
+    """``hist_level_planes`` with its Σx² planes scaled to f32: counts
+    (m, 2, S, 256) int32 and Σx² (m, 2, S, 256) f32 (see
+    ``ref.hist_level_ref``, to which the kernel's result is bit-equal)."""
+    cnt, sq = hist_level_planes(x, seg_id, hi, shift, sc, use_kernel)
+    return cnt, ref.scale_sums(sq, hi, shift)
 
 
 def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
@@ -114,8 +131,8 @@ def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
     same — and t, ss are the whole rows'.
     """
     t, ss, _ = _search(x, seg_id, seg_len, q_seg, scales,
-                       functools.partial(hist_level, use_kernel=use_kernel),
-                       mesh)
+                       functools.partial(hist_level_planes,
+                                         use_kernel=use_kernel), mesh)
     return t, ss
 
 
@@ -123,9 +140,10 @@ def level_prefixes(x: torch.Tensor, seg_id: torch.Tensor,
                    seg_len: torch.Tensor, q_seg: torch.Tensor,
                    scales: Optional[torch.Tensor] = None):
     """[(shift, hi)] of each level of ``segmented_trimmed_stats``'s search
-    on these inputs, found with the plain ``ref.hist_level_ref``: the
-    inputs at which the search calls ``hist_level``."""
-    return _search(x, seg_id, seg_len, q_seg, scales, ref.hist_level_ref)[2]
+    on these inputs, found with the plain ``ref.hist_level_planes_ref``:
+    the inputs at which the search calls ``hist_level_planes``."""
+    return _search(x, seg_id, seg_len, q_seg, scales,
+                   ref.hist_level_planes_ref)[2]
 
 
 def segment_groups(seg_id: torch.Tensor, S: int):
@@ -147,14 +165,14 @@ def segment_groups(seg_id: torch.Tensor, S: int):
 
 
 def _grouped(hist, x, seg_id, hi, shift, scales, groups):
-    """One level's planes over every group: a ``hist`` call on each group's
-    columns with its segments renumbered from 0, written into one
+    """One level's integer planes over every group: a ``hist`` call on each
+    group's columns with its segments renumbered from 0, written into one
     (m, 2, S, 256) pair (zero for a group with no columns here)."""
     if len(groups) == 1 and groups[0][2:] == (0, x.shape[1]):
         return hist(x, seg_id, hi, shift, scales)
     m, S = x.shape[0], hi.shape[2]
     cnt = torch.zeros((m, 2, S, _BINS), dtype=torch.int32, device=x.device)
-    sq = torch.zeros((m, 2, S, _BINS), dtype=torch.float32, device=x.device)
+    sq = torch.zeros((m, 2, S, _BINS), dtype=torch.int64, device=x.device)
     for g0, g1, c0, c1 in groups:
         if c1 <= c0:
             continue
@@ -168,24 +186,29 @@ def _grouped(hist, x, seg_id, hi, shift, scales, groups):
 
 
 def _all_reduce_planes(cnt, sq, mesh):
-    """Sum a level's count and Σx² planes over ``model`` in one all-reduce:
-    both ride in one f64 tensor (counts stay exact; each Σx² is the f32
-    rounding of the shards' f64 sum)."""
+    """Sum a level's count and integer Σx² planes over ``model`` in one
+    all-reduce of one int64 tensor: exact, so the sums are the unsharded
+    planes' whatever the split of the columns."""
     from repro_torch.sharding import collectives as coll
     from repro_torch.sharding.cohort import MODEL_AXIS
-    both = coll.all_reduce(torch.stack([cnt.to(torch.float64),
-                                        sq.to(torch.float64)]),
-                           mesh, MODEL_AXIS)
-    return both[0].to(torch.int32), both[1].to(torch.float32)
+    both = coll.all_reduce(torch.stack([cnt.to(torch.int64), sq]), mesh,
+                           MODEL_AXIS)
+    return both[0].to(torch.int32), both[1]
 
 
 def _search(x, seg_id, seg_len, q_seg, scales, hist, mesh=None):
-    """The level loop, each level's planes from ``hist`` (over the segment
-    groups, summed over ``model`` with a mesh); returns t, ss and the
-    [(shift, hi)] it histogrammed."""
+    """The level loop, each level's integer planes from ``hist`` (over the
+    segment groups, summed over ``model`` with a mesh, then scaled to f32);
+    returns t, ss and the [(shift, hi)] it histogrammed."""
     x, _ = kernel_rows(x, scales)     # once, not at every level
     m = x.shape[0]
     S = seg_len.shape[0]
+    # under a mesh a bin sums over the whole row, every shard's columns
+    if mesh is None:
+        ref.check_row_length(x.shape[1])
+    else:
+        from repro_torch.sharding.cohort import MODEL_AXIS
+        ref.check_row_length(x.shape[1] * mesh.size(MODEL_AXIS))
     groups = segment_groups(seg_id, S)
     r0, r1, frac = ref.interpolation_ranks(q_seg, seg_len[None, :])
     rank = torch.stack([r0, r1], dim=1)                        # (m, 2, S)
@@ -199,6 +222,7 @@ def _search(x, seg_id, seg_len, q_seg, scales, hist, mesh=None):
         cnt, sq = _grouped(hist, x, seg_id, hi, shift, scales, groups)
         if mesh is not None:
             cnt, sq = _all_reduce_planes(cnt, sq, mesh)
+        sq = ref.scale_sums(sq, hi, shift)
         cum = torch.cumsum(cnt, dim=-1)
         # smallest bin whose cumulative count exceeds the rank
         bstar = torch.sum(cum <= rank[..., None], dim=-1)

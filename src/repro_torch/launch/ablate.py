@@ -181,7 +181,7 @@ def hist_times(gen) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
     cnt = torch.zeros((R, 2, 1, 256), dtype=torch.int32, device="cuda")
-    sq = torch.zeros((R, 2, 1, 256), device="cuda")
+    sq = torch.zeros((R, 2, 1, 256), dtype=torch.int64, device="cuda")
     # the top level, and a prefix of bits 8..31 that no |x| has (sign set)
     levels = (("top level", 24, 0), ("nothing matches", 0, -1))
     for name, edits in HIST_VARIANTS:

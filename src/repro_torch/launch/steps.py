@@ -1,5 +1,7 @@
 """Step functions of the training and serving entry points (the port's
-``repro.launch.steps``): train, prefill and decode.
+``repro.launch.steps``): train, prefill and decode, and the dry runs'
+stand-ins for their inputs (``input_specs``, ``decode_cache_specs``:
+tensors on the meta device, shapes and dtypes with nothing allocated).
 
 ``make_train_step`` accumulates ``cfg.grad_accum`` microbatches in order
 (a Python loop where the JAX package scans); with SGD the microbatch
@@ -13,7 +15,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models import model as model_mod
 from repro_torch.optim import make_schedule, opt_update
 from repro_torch.tree import tree_map
@@ -120,3 +122,44 @@ def make_decode_step(cfg: ArchConfig, *, window: Optional[int] = None,
                                      window=window, masks=masks,
                                      enc_out=enc_out)
     return decode_step
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, *,
+                window: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The batch of one (arch x input shape) step on the meta device: a
+    train or prefill shape's tokens (B, S) int32, or (B, S - n_patches)
+    behind bf16 patches (B, n_patches, vit_dim) with a vision frontend,
+    and bf16 frames (B, n_frames, d_model) with an encoder; a decode
+    shape's one token (B, 1)."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda size, dt: torch.empty(size, dtype=dt, device="meta")
+    if shape.kind in ("train", "prefill"):
+        s_text = S
+        batch: Dict[str, torch.Tensor] = {}
+        if cfg.vision is not None:
+            s_text = S - cfg.vision.n_patches
+            batch["patches"] = meta((B, cfg.vision.n_patches,
+                                     cfg.vision.vit_dim), torch.bfloat16)
+        if cfg.encoder is not None:
+            batch["frames"] = meta((B, cfg.encoder.n_frames, cfg.d_model),
+                                   torch.bfloat16)
+        batch["tokens"] = meta((B, s_text), torch.int32)
+        return batch
+    return {"tokens": meta((B, 1), torch.int32)}
+
+
+def abstract_caches(cfg: ArchConfig, batch: int, capacity: int, *,
+                    window: Optional[int] = None):
+    """``model.init_caches`` on the meta device: bf16 caches of
+    ``capacity`` positions (a ring of the window under one)."""
+    params = {"embed": torch.empty(0, device="meta")}
+    return model_mod.init_caches(params, cfg, batch, capacity,
+                                 window=window, dtype=torch.bfloat16)
+
+
+def decode_cache_specs(cfg: ArchConfig, shape: InputShape, *,
+                       window: Optional[int] = None):
+    """The caches a decode step at ``shape`` takes, already prefilled to
+    ``seq_len`` positions (``abstract_caches``)."""
+    return abstract_caches(cfg, shape.global_batch, shape.seq_len,
+                           window=window)

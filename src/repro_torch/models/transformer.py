@@ -137,6 +137,25 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return from_paths(paths, values)
 
 
+# the leaves init_params keeps in f32 whatever its dtype: the MoE router,
+# the SSD's A_log, D and dt_bias, the RG-LRU's gates and Λ
+_F32_LEAVES = frozenset({"router", "A_log", "D", "dt_bias"}
+                        | set(rglru_mod._F32_LEAVES))
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16) -> Params:
+    """The tree ``init_params(cfg, ·, dtype)`` builds, as tensors on the
+    meta device: its shapes and dtypes, nothing allocated."""
+    paths, values = [], []
+    for path, shape in leaves_with_path(param_shapes(cfg),
+                                        is_leaf=_is_shape):
+        paths.append(path)
+        values.append(torch.empty(
+            shape, device="meta",
+            dtype=torch.float32 if path[-1] in _F32_LEAVES else dtype))
+    return from_paths(paths, values)
+
+
 def _ffn_apply(p: Params, x, cfg: ArchConfig, m: WidthMasks):
     act = ACTIVATIONS[cfg.act]
     if cfg.norm == "layernorm":            # whisper's MLP, with biases

@@ -1,2 +1,3 @@
 """The (data, model) layout of the sharded FL server (``cohort``) and the
-collectives that cross it (``collectives``)."""
+collectives that cross it (``collectives``); the production mesh's
+sharding plans for the dry runs (``specs``, ``hints``, ``padding``)."""

@@ -7,6 +7,7 @@ statistics and interpolate with the same f32 operations); sums of squares
 and weighted sums agree to the f32 rounding of a different summation
 order (rtol 1e-5 and 1e-6)."""
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -163,7 +164,7 @@ def _segmented_case(seed):
     return x, seg, seg_len, q
 
 
-@pytest.mark.parametrize("level", [0, 2])
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
 def test_hist_level_planes_match_reference(level):
     """One level's count and Σx² planes, with segments, inert columns and a
     resolved prefix taken from the data so later levels see real brackets."""
@@ -303,6 +304,86 @@ def test_hist_level_planes_differ_where_prefixes_differ():
         c1, s1 = multilevel.hist_level(x, seg, alone, shift, sc)
         assert torch.equal(cnt[:, p], c1[:, 0])
         assert torch.equal(sq[:, p], s1[:, 0])
+
+
+@pytest.mark.parametrize("how", ["permute", "split"])
+@pytest.mark.parametrize("dtype", ["f32", "int8", "bf16"])
+def test_hist_level_integer_planes_exact_under_reorder(dtype, how):
+    """The Σx² planes are exact integers in each bin's units, so the kernel's
+    blocks, and model shards whose planes are all-reduced, may add them in
+    any order: the plain planes of permuted columns, or the sum of the
+    planes of uneven chunks of the columns, equal the whole row's bit for
+    bit, at every level of the search; scaled to f32 they lie within one
+    f32 rounding of the f64 sum of the squares."""
+    x, seg, seg_len, q, sc = _plane_case(dtype, 3, seed=2)
+    C = x.shape[1]
+    for shift, hi in multilevel.level_prefixes(x, seg, seg_len, q, sc):
+        cnt, sq = ref.hist_level_planes_ref(x, seg, hi, shift, sc)
+        assert sq.dtype == torch.int64 and int(cnt.sum()) > 0
+        if how == "permute":
+            perm = torch.randperm(C, generator=torch.Generator().manual_seed(
+                shift))
+            c2, s2 = ref.hist_level_planes_ref(x[:, perm], seg[perm], hi,
+                                               shift, sc)
+        else:
+            c2, s2 = torch.zeros_like(cnt), torch.zeros_like(sq)
+            for c0, c1 in ((0, 1), (1, 377), (377, 1000), (1000, C)):
+                a, b = ref.hist_level_planes_ref(x[:, c0:c1].contiguous(),
+                                                 seg[c0:c1], hi, shift, sc)
+                c2, s2 = c2 + a, s2 + b
+        assert torch.equal(cnt, c2) and torch.equal(sq, s2)
+        # the f32 planes against an f64 sum of the same squares
+        a = x.to(torch.float32)
+        if sc is not None:
+            a = a * sc[:, seg.clamp(min=0).long()]
+        a = a.abs()
+        bits = a.view(torch.int32)
+        m, S = hi.shape[0], hi.shape[2]
+        want = torch.zeros((m, 2, S, 256), dtype=torch.float64)
+        for p in range(2):
+            inb = ((bits >> min(shift + 8, 31)) == hi[:, p][:, seg.clamp(
+                min=0).long()]) & (seg >= 0)
+            for r in range(m):
+                idx = (seg.long() * 256 + ((bits[r] >> shift) & 0xFF))[inb[r]]
+                want[r, p].view(-1).index_add_(
+                    0, idx, (a[r] * a[r]).double()[inb[r]])
+        np.testing.assert_allclose(ref.scale_sums(sq, hi, shift).numpy(),
+                                   want.numpy(), rtol=2 ** -24, atol=0)
+
+
+@pytest.mark.parametrize("shift", [24, 16, 8, 0])
+def test_hist_level_scale_sums_rounds_once(shift):
+    """``scale_sums`` is each bin's (float)((double)t · 2^(2 ef − 254 −
+    KFRAC)), ef the exponent field of the bin's lowest bit pattern (the
+    prefix above the byte, the bin at it), element by element in Python:
+    bit for bit, for integers up to 2^60."""
+    g = torch.Generator().manual_seed(shift)
+    hs = min(shift + 8, 31)
+    hi = torch.randint(0, 1 << (31 - hs) if hs < 31 else 1, (2, 2, 3),
+                       generator=g, dtype=torch.int32)
+    e = torch.randint(0, 61, (2, 2, 3, 256), generator=g)
+    sq = torch.randint(0, 1 << 62, (2, 2, 3, 256), generator=g,
+                       dtype=torch.int64) >> (62 - e)
+    got = ref.scale_sums(sq, hi, shift)
+    top = (hi.long() << hs) if hs < 31 else torch.zeros_like(hi).long()
+    want = np.empty(tuple(sq.shape), dtype=np.float32)
+    for i in np.ndindex(*sq.shape):
+        ef = (int(top[i[:3]]) | (i[3] << shift)) >> 23
+        want[i] = np.float32(math.ldexp(float(int(sq[i])),
+                                        2 * ef - 254 - ref.KFRAC))
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("n,fits", [(2 ** 31 - 1, True), (2 ** 31, False)])
+def test_hist_level_row_limit(n, fits):
+    """The counts are int32: a row of 2^31 elements is refused before a
+    launch, a shorter one fits, and its bin sums stay within int64."""
+    if fits:
+        ref.check_row_length(n)
+        assert n * ((1 << (ref.KFRAC + 5)) - 1) < 2 ** 63
+    else:
+        with pytest.raises(ValueError, match="2\\^31"):
+            ref.check_row_length(n)
 
 
 @pytest.mark.parametrize("itemsize", [4, 2, 1])

@@ -12,7 +12,9 @@ shared fixture are imported inside the functions that run in the parent
 only.
 
 Tolerances: thresholds bit-equal (they follow from exact histogram
-counts); each Σw² at rtol 1e-5; the merged global within 8 ulp of
+counts); each Σw² bit-equal to the unsharded run of the same search (its
+histogram planes are exact integers) and at rtol 1e-5 against the per-leaf
+path; the merged global within 8 ulp of
 Σ_c n_c·α_c·|x_c[n]|·dens / Γ[n], the sums' magnitude, against the port's
 unsharded aggregation (the shards add the same terms in another order),
 and at the flat tests' rtol 1e-4 / atol 1e-5 against the reference's;
@@ -217,6 +219,9 @@ def _unsharded(params, perms, workdir):
     xm = flat._graft_flat(index, x, gmaps) * dens
     ref = {"x": x, "g": g}
     ref["t"], ref["ss"] = flat._cohort_stats(index, xm, fracs, 0.95)
+    # the 2-D pass's segmented search on whole rows, without a mesh
+    whole = slice(0, index.n_padded)
+    ref["ss_seg"] = flat._cohort_stats(index, xm, fracs, 0.95, cols=whole)[1]
     kw = STRATEGIES["fedfa"]
     ref["g_f32"] = flat.aggregate_buffers(index, g, x, CFG, masks, gates,
                                           gmaps, nd, **kw)
@@ -228,6 +233,8 @@ def _unsharded(params, perms, workdir):
     ref.update(x_q=state[0], scales=state[1])
     ref["tq"], ref["ssq"] = flat._cohort_stats(index, state[0], fracs, 0.95,
                                                state[1])
+    ref["ssq_seg"] = flat._cohort_stats(index, state[0], fracs, 0.95,
+                                        state[1], cols=whole)[1]
     ref["g_int8"] = flat.aggregate_buffers(
         index, g, state[0], CFG, masks, gates, gmaps, nd, scales=state[1],
         pregrafted=True, **kw)
@@ -600,10 +607,15 @@ def test_mesh_aggregation_collectives(runs, shape, kind):
 @pytest.mark.parametrize("dt", ["f32", "int8"])
 def test_mesh_thresholds_bit_equal(runs, shape, dt):
     """Every (real client, segment) threshold of the norms pass equals the
-    unsharded path's bit for bit; Σw² at rtol 1e-5; the quantized rows and
-    scales admitted on the mesh are the unsharded admission's bits."""
+    unsharded path's bit for bit; Σw² too, against the unsharded run of the
+    same search (the 2-D pass's segmented multilevel quantile on whole rows,
+    whose exact integer planes the model shards' all-reduce sums to; the
+    per-leaf path where the pass is not 2-D), and at rtol 1e-5 against the
+    per-leaf path; the quantized rows and scales admitted on the mesh are
+    the unsharded admission's bits."""
     ref = runs["ref"]
     t, ss = ("t", "ss") if dt == "f32" else ("tq", "ssq")
+    same = f"{ss}_seg" if mesh_mod.parse_mesh_shape(shape)[1] > 1 else ss
     for o in runs[shape]:
         rows, cols = _rows_cols(shape, o["coord"], _n_padded(shape))
         real = slice(rows.start, min(rows.stop, M))
@@ -612,6 +624,8 @@ def test_mesh_thresholds_bit_equal(runs, shape, dt):
                                       ref[t][real].numpy().view(np.uint32))
         np.testing.assert_allclose(o[ss][:k].numpy(), ref[ss][real].numpy(),
                                    rtol=1e-5)
+        np.testing.assert_array_equal(o[ss][:k].numpy().view(np.uint32),
+                                      ref[same][real].numpy().view(np.uint32))
         if dt == "int8":
             n = ref["x_q"].shape[1]
             assert torch.equal(o["scales"][:k], ref["scales"][real])

@@ -183,12 +183,37 @@ def _imports(tree):
             yield node.module or ""
 
 
+# the modules of the configuration counts, the cost model, the sharding
+# plans and the dry runs, every one held to the import rule below
+NEW_MODULES = (
+    [f"configs/{m}.py" for m in (
+        "arctic_480b", "codeqwen1_5_7b", "fedfa_paper", "internvl2_76b",
+        "mamba2_130m", "minicpm_2b", "phi35_moe", "recurrentgemma_2b",
+        "smollm_135m", "tinyllama_1_1b", "whisper_base")]
+    + ["launch/costs.py", "launch/dryrun.py", "launch/dryrun_fedfa.py",
+       "sharding/specs.py", "sharding/hints.py", "sharding/padding.py"])
+
+
+def test_cost_model_imports_no_torch():
+    """launch/costs.py is pure Python: it imports only the configs at
+    module level (macs_per_client takes masks.width_spec when called)."""
+    tree = ast.parse((REPO / "src" / "repro_torch" / "launch" / "costs.py")
+                     .read_text())
+    top = [m for node in tree.body if isinstance(node, (ast.Import,
+                                                        ast.ImportFrom))
+           for m in _imports(node)]
+    assert top == ["__future__", "typing", "repro_torch.configs.base"]
+
+
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     for pkg in ("sim", "checkpoint", "examples", "sharding"):
         assert REPO / "src" / "repro_torch" / pkg / "__init__.py" in files
+    port = REPO / "src" / "repro_torch"
+    for mod in NEW_MODULES:
+        assert port / mod in files, mod
     for path in files:
         text = path.read_text()
         for mod in _imports(ast.parse(text)):
