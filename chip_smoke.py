@@ -220,7 +220,20 @@
    thresholds bit for bit; times the kernel, the plain version and,
    where one PyTorch call computes the same function, that call.  Every phase that reads peak
    memory collects Python's garbage first.
-10. Prints the kernels line, then ``{"ok": true, "device": {...}}`` last.
+10. The program contracts (``repro_torch.analysis``, ``analysis_phase``):
+    the fixture programs of ``python -m repro_torch.analysis check`` in
+    this process without a mesh (a warm-up run, then the measured one):
+    every contract PASSes, each program's kernel launches equal the
+    prediction from the fixture's layout and together the kernels' own
+    counts, its row reads and sorts equal the same programs' on the CPU,
+    and its allocator peak is printed beside the CPU's storage sweep.
+    Then the contracts recorded on the way: one extra, untimed round and
+    aggregation of the f32 and int8 main paths' state (step 4), one
+    admission and merge of each async run's engine, the 1 x 1 NCCL mesh's
+    aggregation and each 2 x 2 rank's aggregation, distributed norms
+    pass, second round and one more int8 merge.  Three JSON lines, any
+    FAIL failing the run.
+11. Prints the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure exits non-zero before the last line.  Without CUDA, or without
 the repository around it, the script exits non-zero and prints no result.
@@ -643,7 +656,7 @@ def recording(module, name: str, limit: int, calls: list, to=None,
 
 def main_path(kernels, update_dtype: str, path_kernels,
               arch: str = "smollm-135m", record_all: bool = False,
-              full_size: bool = True) -> dict:
+              full_size: bool = True, contracts=None) -> dict:
     """The CLI defaults at full size (``arch``: smollm-135m, the main path,
     or mamba2-130m; phi3.5-moe at the CLI's 4-layer cut, ``full_size``
     False) for 2 rounds at ``update_dtype``, with every launch
@@ -654,7 +667,10 @@ def main_path(kernels, update_dtype: str, path_kernels,
     also (in host memory, so that the path's peak is its own) the first
     round's multilevel quantiles, ``scaled_accum`` and ``quant_accum``
     calls, and the first ``SSD_PER_SHAPE`` ``ssd_intra_chunk`` calls of
-    each shape (``calls``)."""
+    each shape (``calls``).  With ``contracts`` (a list), the program
+    contracts of one more, untimed round of the state the run left
+    (``round_contracts``) are appended to it."""
+    from repro_torch.core import round as round_mod
     from repro_torch.kernels.fedfa_agg import ops as agg_ops
     from repro_torch.kernels.fedfa_quantile import multilevel, ops
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -673,12 +689,27 @@ def main_path(kernels, update_dtype: str, path_kernels,
                                    lambda x, *_: tuple(x.shape))
     calls = {name: [] for name in spec}
 
+    drivers, resident = [], round_mod.ResidentDriver
+
+    class Kept(resident):
+        """The run's driver, keeping its last round's arguments."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            drivers.append(self)
+
+        def round(self, g_buf, specs, batches, perms=None):
+            self.last = (g_buf, specs, batches, perms)
+            return super().round(g_buf, specs, batches, perms)
+
     for k in kernels:
         k.reset()
     collect_garbage()
     torch.cuda.reset_peak_memory_stats()
     origs = {name: recording(mod, name, limit, calls[name], to, key)
              for name, (mod, limit, to, key) in spec.items()}
+    if contracts is not None:
+        round_mod.ResidentDriver = Kept
     t0 = time.perf_counter()
     try:
         hist = train.run_fl(arch, 2, 16, strategy="fedfa", batch=8,
@@ -688,6 +719,7 @@ def main_path(kernels, update_dtype: str, path_kernels,
                             full_size=full_size, device="cuda")
         torch.cuda.synchronize()
     finally:
+        round_mod.ResidentDriver = resident
         for name, (mod, *_) in spec.items():
             setattr(mod, name, origs[name])
     hist["seconds"] = time.perf_counter() - t0
@@ -702,7 +734,109 @@ def main_path(kernels, update_dtype: str, path_kernels,
     check(all(k.launches > 0 for k in path_kernels),
           f"a kernel of the {arch} {update_dtype} path never ran: "
           f"{hist['launches']}")
+    if contracts is not None:
+        (driver,) = drivers
+        contracts += round_contracts(driver, update_dtype)
     return hist
+
+
+def round_contracts(driver, update_dtype: str) -> list:
+    """The analysis phase's full-width part for the resident round: one
+    more round of the state a main path left (its driver and pools, its
+    global and its last cohort), untimed and recorded
+    (``analysis.dispatch``), held to ``round_contract`` (f32) or
+    ``quantized_round_contract`` (int8; its reads and sorts on the fused
+    dequantize-accumulate over the pool's int8 rows, as the fixture's);
+    then one aggregation of the same buffers held to
+    ``accumulate_contract``.  Peaks are the allocator's.  Returns
+    (name, report, seconds) triples."""
+    from repro_torch.analysis import passes
+    from repro_torch.analysis.dispatch import Recorder, Run
+    from repro_torch.core import flat
+    from repro_torch.core import round as round_mod
+    from repro_torch.core.fedfa import STRATEGIES
+    from repro_torch.core.server import stack_runtimes
+    from repro_torch.kernels.fedfa_agg import ops as agg_ops
+    g_buf, specs, batches, perms = driver.last
+    cfg, fl, index = driver.cfg, driver.fl, driver.index
+    m = len(specs)
+    c_buf, qstate = driver.pool(m)
+    runtimes = stack_runtimes(cfg, specs, "cuda")
+    collect_garbage()
+    out = []
+    t0 = time.perf_counter()
+    _, rec, held = passes.run_in_place(
+        round_mod.flat_round, (g_buf, c_buf, cfg, fl, index, runtimes,
+                               batches, perms, qstate, None), sweep=False)
+    if qstate is None:
+        rep = round_mod.round_contract(index, None, rows=m).check(
+            rec.run(ops=[], in_place=held))
+    else:
+        with Recorder(row_elems=qstate[0].numel(), inputs=qstate[:2],
+                      sweep=False) as acc:
+            agg_ops.accumulate_quant(
+                qstate[0], torch.ones(m, device="cuda"), qstate[1],
+                flat._device_seg_id(index, "cuda"),
+                torch.ones(index.n_padded, device="cuda"))
+        rep = round_mod.quantized_round_contract(index, None, rows=m).check(
+            Run(counts=acc.counts, row_elems=acc.row_elems, ops=[],
+                memory=rec.memory, in_place=held))
+    rep.measured["kernel_calls"] = rec.counts.kernels
+    out.append((f"smollm-135m round ({update_dtype}, m = {m})", rep,
+                time.perf_counter() - t0))
+    masks, gates, gmaps, nd, _, _ = runtimes
+    x = c_buf if qstate is None else qstate[0]
+    extra = {} if qstate is None else dict(scales=qstate[1],
+                                           pregrafted=True)
+    t0 = time.perf_counter()
+    with Recorder(inputs=(g_buf, x, runtimes) + tuple(extra.values()),
+                  sweep=False) as agg:
+        flat.aggregate_buffers(index, g_buf, x, cfg, masks, gates, gmaps, nd,
+                               trim=fl.trim, use_kernel=fl.use_kernel,
+                               **STRATEGIES[fl.strategy], **extra)
+    rep = agg_ops.accumulate_contract(index.n_padded, None, rows=m,
+                                      segs=index.n_segments).check(
+        agg.run(ops=[]))
+    rep.measured["kernel_calls"] = agg.counts.kernels
+    out.append((f"smollm-135m aggregation ({update_dtype}, m = {m})", rep,
+                time.perf_counter() - t0))
+    driver.last = None
+    return out
+
+
+def async_contracts(eng, update_dtype: str) -> list:
+    """The analysis phase's full-width part for the async engine: on the
+    engine a full-size ``run_fl(driver="async")`` left, one admission of
+    the next clients into slots 0.. and one merge of the rows ready then,
+    each recorded and held to ``admit_contract`` (or
+    ``quantized_admit_contract``) and ``merge_contract``.  It moves the
+    engine's global: run it after anything that reads the run's end.
+    Returns (name, report, seconds) triples."""
+    from repro_torch.analysis import programs
+    from repro_torch.core import async_round
+    res, t = None, eng.now
+    while not res or not len(res[0]):    # the next clients available
+        res, t = eng.source(eng.dispatch_idx, t, 4), t + 1.0
+    specs, batches, _ = res
+    slots = np.arange(len(specs))
+    eng.pool.admit(slots, specs, np.zeros(len(specs)), eng.now, eng.version)
+    eng._pending = (slots, specs, batches, eng.dispatch_idx)
+    collect_garbage()
+    admit = async_round.admit_contract if update_dtype == "f32" \
+        else async_round.quantized_admit_contract
+    out = []
+    for name, record, contract in (
+            (f"async admission ({update_dtype}, {len(specs)} clients)",
+             programs.record_admission, admit),
+            (f"async merge ({update_dtype}, pool of {eng.rows})",
+             programs.record_merge, async_round.merge_contract)):
+        t0 = time.perf_counter()
+        rec, held = record(eng, sweep=False)
+        rep = contract(eng.index, None, rows=eng.rows).check(
+            rec.run(ops=[], in_place=held))
+        rep.measured["kernel_calls"] = rec.counts.kernels
+        out.append((name, rep, time.perf_counter() - t0))
+    return out
 
 
 # ssd_intra_chunk calls of each shape that main_path(record_all=True) keeps
@@ -3077,7 +3211,9 @@ def mesh_one_rank(kernels, tmp: str) -> dict:
     import torch.distributed as dist
     from repro_torch.core import flat
     from repro_torch.core.fedfa import STRATEGIES
+    from repro_torch.analysis.dispatch import Recorder
     from repro_torch.core.server import stack_runtimes
+    from repro_torch.kernels.fedfa_agg.ops import accumulate_contract
     from repro_torch.launch.mesh import get_mesh
     from repro_torch.launch import train
     dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl1",
@@ -3092,7 +3228,7 @@ def mesh_one_rank(kernels, tmp: str) -> dict:
         masks, gates, gmaps, nd, _, _ = stack_runtimes(cfg, specs, "cuda")
         kw = dict(STRATEGIES["fedfa"], trim=0.95)
         g = cohort_global(index)
-        rounds = []
+        rounds, contracts = [], []
         for rnd in range(2):
             x = torch.stack([cohort_row(index, 8 * rnd + i) for i in range(8)])
 
@@ -3105,8 +3241,16 @@ def mesh_one_rank(kernels, tmp: str) -> dict:
                 return out, {k.symbol: dict(k.by_shape) for k in kernels
                              if k.launches}
             mesh.counts.clear()
-            g_mesh, by_mesh = agg(g, x, mesh=mesh)
+            mesh.ops.clear()
+            with Recorder(inputs=(g, x), sweep=False) as rec:
+                g_mesh, by_mesh = agg(g, x, mesh=mesh)
             counts = mesh_counts(mesh)
+            if rnd == 0:    # the program contract of a one-device mesh
+                contracts.append((
+                    "1 x 1 NCCL mesh aggregation (m = 8)",
+                    accumulate_contract(index.n_padded, mesh, rows=8,
+                                        segs=index.n_segments).check(
+                        rec.run(ops=list(mesh.ops))).to_json()))
             g_one, by_one = agg(g, x)
             g_again, _ = agg(g, x)
             # the norms pass's thresholds come from exact counts: bit-equal
@@ -3142,7 +3286,8 @@ def mesh_one_rank(kernels, tmp: str) -> dict:
                            "collectives": counts})
             g = g_one      # round 2 from the unsharded round's global
             del g_mesh, g_again, err
-        return {"mesh": "1x1", "backend": mesh.backend, "rounds": rounds}
+        return {"mesh": "1x1", "backend": mesh.backend, "rounds": rounds,
+                "contracts": contracts}
     finally:
         dist.destroy_process_group()
 
@@ -3164,14 +3309,20 @@ def mesh_rank(rank: int, tmp: str) -> None:
 
 
 def _mesh_rank(rank: int, tmp: str) -> None:
+    from repro_torch.analysis import passes, programs
+    from repro_torch.analysis.dispatch import Recorder
     from repro_torch.core import flat
-    from repro_torch.core.async_round import AsyncConfig, AsyncEngine
+    from repro_torch.core.async_round import (AsyncConfig, AsyncEngine,
+                                              merge_contract)
     from repro_torch.core.fedfa import STRATEGIES
-    from repro_torch.core.round import ResidentDriver, fresh_quant_state
+    from repro_torch.core.round import (ResidentDriver, fresh_quant_state,
+                                        round_contract)
     from repro_torch.core.server import FLConfig, stack_runtimes
     from repro_torch.checkpoint import checkpoint as ckpt_mod
-    from repro_torch.kernels.fedfa_agg.ops import QUANT_ACCUM, SCALED_ACCUM
-    from repro_torch.kernels.fedfa_quantile.multilevel import HIST_LEVEL
+    from repro_torch.kernels.fedfa_agg.ops import (QUANT_ACCUM, SCALED_ACCUM,
+                                                   accumulate_contract)
+    from repro_torch.kernels.fedfa_quantile.multilevel import (
+        HIST_LEVEL, distributed_quantile_contract)
     from repro_torch.kernels.fedfa_quantile.ops import QUANTILE_FUSED
     from repro_torch.launch import train
     from repro_torch.launch.mesh import get_mesh
@@ -3187,12 +3338,14 @@ def _mesh_rank(rank: int, tmp: str) -> None:
     S, cols = index.n_segments, flat.pool_cols(index, mesh, None)
     width = cols.stop - cols.start
     out = {"rank": rank, "coord": mesh.coord, "backend": mesh.backend,
-           "device": torch.cuda.current_device(), "n_padded": index.n_padded}
+           "device": torch.cuda.current_device(), "n_padded": index.n_padded,
+           "contracts": []}
 
     def measure(fn):
         for k in kernels:
             k.reset()
         mesh.counts.clear()
+        mesh.ops.clear()
         mesh.staged_bytes = 0
         collect_garbage()
         torch.cuda.synchronize()
@@ -3207,6 +3360,25 @@ def _mesh_rank(rank: int, tmp: str) -> None:
                          for k in kernels if k.launches},
                      "collectives": mesh_counts(mesh),
                      "staged_bytes": mesh.staged_bytes}
+
+    recs = {}
+
+    def recorded(fn, inputs, row_elems=None):
+        """``fn`` run under a ``Recorder`` (its peak the allocator's), kept
+        in ``recs["last"]``."""
+        def run():
+            with Recorder(row_elems=row_elems, inputs=inputs,
+                          sweep=False) as rec:
+                res = fn()
+            recs["last"] = rec
+            return res
+        return run
+
+    def held_to(name, contract, rec, **kw):
+        """This rank's ``contract`` on the run ``rec`` recorded."""
+        rep = contract.check(rec.run(ops=list(mesh.ops), **kw))
+        rep.measured["kernel_calls"] = rec.counts.kernels
+        out["contracts"].append((name, rep.to_json()))
 
     def keep(name, t):
         """This rank's slice: its sha256, and the slice itself from the
@@ -3226,18 +3398,30 @@ def _mesh_rank(rank: int, tmp: str) -> None:
                      for i in range(rows.start, rows.stop)])
     g = cohort_global(index)[csh.model_cols(mesh, index.n_padded)].clone()
     kw = dict(STRATEGIES["fedfa"], trim=0.95, mesh=mesh)
-    # twice: the first call also loads the kernels and warms the groups
-    for _ in range(2):
+    # twice: the first call also loads the kernels and warms the groups;
+    # the second recorded for its program contract
+    def aggregate_f32():
+        return flat.aggregate_buffers(index, g, x, cfg, masks, gates, gmaps,
+                                      nd, **kw)
+    for i in range(2):
         g_new, out["aggregate_f32"] = measure(
-            lambda: flat.aggregate_buffers(index, g, x, cfg, masks, gates,
-                                           gmaps, nd, **kw))
+            recorded(aggregate_f32, (g, x)) if i else aggregate_f32)
         out.setdefault("aggregate_f32_cold_ms", out["aggregate_f32"]["ms"])
+    held_to(f"2 x 2 aggregation (f32, m = {MESH_AGG_M})",
+            accumulate_contract(index.n_padded, mesh, rows=MESH_AGG_M + 1,
+                                segs=S), recs["last"])
     keep("agg_f32", g_new)
     dens, fracs = flat._density_rows(cfg, index, masks, cols, "cuda")
     xm = flat._graft_flat(index, x, gmaps)[:, cols] * dens
     del dens
-    t, ss = flat._cohort_stats(index, xm, fracs, 0.95, None, None, mesh,
-                               cols)
+    mesh.ops.clear()
+    t, ss = recorded(lambda: flat._cohort_stats(
+        index, xm, fracs, 0.95, None, None, mesh, cols), (xm, fracs),
+        row_elems=xm.numel())()
+    held_to("2 x 2 distributed trimmed quantile (f32)",
+            distributed_quantile_contract(
+                xm.shape[0], S, xm.numel() * xm.element_size()),
+            recs["last"])
     del xm
     state = fresh_quant_state(index, rows.stop - rows.start, "int8", "cuda",
                               width)
@@ -3283,8 +3467,16 @@ def _mesh_rank(rank: int, tmp: str) -> None:
     out["rounds"] = []
     for r in range(2):
         specs_r, batches = data_fn(r)
-        loss, rep = measure(lambda: float(driver.round(g_buf, specs_r,
-                                                       batches)))
+        if r == 0:
+            loss, rep = measure(lambda: float(driver.round(g_buf, specs_r,
+                                                           batches)))
+        else:   # recorded, with the buffers it holds in place
+            (loss, rec, held), rep = measure(lambda: passes.run_in_place(
+                lambda g_, c_: float(driver.round(g_, specs_r, batches)),
+                (g_buf, driver.pool(len(specs_r))[0]), sweep=False))
+            held_to(f"2 x 2 resident round (f32, m = {len(specs_r)})",
+                    round_contract(index, mesh, rows=len(specs_r)), rec,
+                    in_place=held)
         out["rounds"].append(dict(rep, loss=loss))
     del driver
     g_full = coll.gather_model(g_buf, mesh, index.n_padded)
@@ -3322,6 +3514,17 @@ def _mesh_rank(rank: int, tmp: str) -> None:
     g_full = coll.gather_model(eng.g_buf, mesh, index.n_padded)
     if rank == 0:
         torch.save(g_full.cpu(), f"{tmp}/async.pt")
+    del g_full
+    # one more merge of the pool the parity merge admitted (after the
+    # global above was kept), recorded for its program contract
+    specs0, _ = fl_round_data(cfg, "cuda")(0)
+    eng.pool.admit(np.arange(len(specs0)), specs0, np.zeros(len(specs0)),
+                   eng.now, eng.version)
+    eng.pool.loss[:len(specs0)] = 0.0    # not trained again: no new loss
+    collect_garbage()
+    rec, held = programs.record_merge(eng, mesh, sweep=False)
+    held_to(f"2 x 2 async merge (int8, pool of {eng.rows})",
+            merge_contract(index, mesh, rows=eng.rows), rec, in_place=held)
     torch.save(out, f"{tmp}/mesh_rank{rank}.pt")
 
 
@@ -3598,9 +3801,15 @@ def mesh_path(kernels, card: str) -> tuple:
                   f"{rep['collectives']}")
             check(o["checkpoint"]["restored_bit_equal"],
                   f"rank {o['rank']}: checkpoint not restored bit-equal")
+            names = [name for name, _ in o["contracts"]]
+            check(len(names) == 4, f"rank {o['rank']}: contracts {names}")
         ref = mesh_references(ranks, tmp)
         t3 = time.perf_counter()
     rows = mesh_kernel_rows(ranks)
+    # the program contracts, every rank's (the analysis phase prints them)
+    contracts = [(f"{name}, rank {o['rank']}", rep) for o in ranks
+                 for name, rep in o.pop("contracts")]
+    contracts = one.pop("contracts") + contracts
     report = {"one_rank_nccl": one,
               "two_by_two": {"ranks": json_ready(ranks),
                              "against_unsharded": ref},
@@ -3608,7 +3817,108 @@ def mesh_path(kernels, card: str) -> tuple:
                           "references": t3 - t2,
                           "phase": time.perf_counter() - t0},
               "card": card}
-    return report, rows
+    return report, rows, contracts
+
+
+def fixture_launches() -> dict:
+    """Each fixture program's kernel launches, predicted from the fixture's
+    layout (``analysis.programs``): the norms pass launches
+    ``quantile_fused`` once a leaf whose rows fit one pass and
+    ``hist_level`` once a level for each longer leaf; M' and Γ one
+    ``scaled_accum`` each (M' ``quant_accum`` at int8); the admissions
+    launch nothing; the quantile fixtures one ``quantile_fused`` each, or
+    four ``hist_level`` levels for the long row."""
+    from repro_torch.analysis import programs
+    from repro_torch.core import flat
+    _, _, params, _, _ = programs._fixture(1)
+    index = flat.FlatIndex(params)
+    one = sum(-(-lf.rest // 128) * 128 <= 1 << 18 for lf in index.leaves)
+    norms = {"quantile_fused": one,
+             "hist_level": 4 * (len(index.leaves) - one)}
+    agg = dict(norms, scaled_accum=2)
+    want = {"round/ms1": agg, "agg/1dev": agg, "async/merge": agg,
+            "round/quant": dict(norms, scaled_accum=1, quant_accum=1),
+            "async/admit": {}, "async/admit-quant": {},
+            "quantile/fused": {"quantile_fused": 1}, "quantile/topk": {},
+            "quantile/fused-pad": {"quantile_fused": 1},
+            "quantile/topk-pad": {}, "quantile/multilevel": {"hist_level": 4}}
+    return {k: {n: c for n, c in v.items() if c} for k, v in want.items()}
+
+
+def analysis_phase(kernels, card: str, full_width: list,
+                   mesh_contracts: list) -> None:
+    """The program contracts (``repro_torch.analysis``), in three JSON
+    lines, each failing the run on any FAIL:
+
+    1. the fixture programs on the card (``programs.canonical_reports`` in
+       one process, no mesh; once to warm up, then measured): every
+       contract PASSes; each program's kernel calls equal the prediction
+       (``fixture_launches``) and together the kernels' own launch counts;
+       row reads and sorts equal the same programs' on the CPU; the
+       card's allocator peak printed beside the CPU's storage sweep;
+    2. the full-width contracts recorded on the main path's state
+       (``round_contracts``, ``async_contracts``);
+    3. the mesh contracts recorded in ``mesh_path`` (every rank's).
+    """
+    from repro_torch.analysis import programs
+    t0 = time.perf_counter()
+    programs.canonical_reports(device="cuda", meshes=False)    # warm-up
+    for k in kernels:
+        k.reset()
+    collect_garbage()
+    t1 = time.perf_counter()
+    reports = programs.canonical_reports(device="cuda", meshes=False)
+    t2 = time.perf_counter()
+    launched = {k.symbol: k.launches for k in kernels if k.launches}
+    cpu = {r.contract.name: r
+           for r in programs.canonical_reports(device="cpu", meshes=False)}
+    want = fixture_launches()
+    rows, calls = [], collections.Counter()
+    for rep in reports:
+        name, got = rep.contract.name, rep.measured
+        here = cpu[name].measured
+        # the round's launches and those of round/quant's read count
+        calls.update(got["kernel_calls"])
+        calls.update(got.get("reads_kernel_calls", {}))
+        check(rep.ok, f"analysis: {name} FAILs on the card: "
+              f"{rep.violations}")
+        check(cpu[name].ok, f"analysis: {name} FAILs on the CPU: "
+              f"{cpu[name].violations}")
+        check(got["kernel_calls"] == want[name],
+              f"analysis: {name} launched {got['kernel_calls']}, predicted "
+              f"{want[name]}")
+        for key in ("row_reads", "sorts"):
+            check(got.get(key) == here.get(key),
+                  f"analysis: {name} {key} {got.get(key)} on the card, "
+                  f"{here.get(key)} on the CPU")
+        rows.append(dict(rep.to_json(),
+                         card_peak_bytes=got["peak_live_bytes_per_device"],
+                         cpu_sweep_peak_bytes=here[
+                             "peak_live_bytes_per_device"]))
+    check(dict(calls) == launched, f"analysis: the programs' kernel calls "
+          f"{dict(calls)} differ from the kernels' launches {launched}")
+    print(json.dumps({"analysis": {
+        "part": "fixture programs on the card", "reports": rows,
+        "launches": launched, "warmup_s": t1 - t0, "measured_s": t2 - t1,
+        "cpu_s": time.perf_counter() - t2, "card": card}}), flush=True)
+    full = [dict(rep.to_json(), run=name, seconds=sec)
+            for name, rep, sec in full_width]
+    print(json.dumps({"analysis": {
+        "part": "full width (smollm-135m, m = 8)", "reports": full,
+        "card": card}}), flush=True)
+    mesh = [dict(rep, run=name) for name, rep in mesh_contracts]
+    print(json.dumps({"analysis": {
+        "part": "meshes (1 x 1 NCCL, 2 x 2 gloo)", "reports": mesh,
+        "card": card}}), flush=True)
+    for rep in full + mesh:
+        check(rep["ok"], f"analysis: {rep['run']} {rep['program']} FAILs: "
+              f"{rep['violations']}")
+    check(len(full) == 8 and len(mesh) == 1 + 4 * 4,
+          f"analysis: {len(full)} full-width and {len(mesh)} mesh "
+          f"contracts")
+    log(f"analysis phase: {time.perf_counter() - t0:.1f} s here, "
+        f"{sum(sec for _, _, sec in full_width):.1f} s of full-width "
+        f"recording")
 
 
 def json_ready(obj):
@@ -3680,9 +3990,11 @@ def main() -> int:
     print(json.dumps({"small_tree": small_tree_check(kernels)}), flush=True)
     f32_path = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL]
     launches, shapes, quantile_calls = {}, {}, {}
+    full_width = []     # the analysis phase's full-width contracts
     for dtype in ("f32", "int8", "bf16"):
         hist = main_path(kernels, dtype, f32_path if dtype == "f32"
-                         else f32_path + [QUANT_ACCUM])
+                         else f32_path + [QUANT_ACCUM],
+                         contracts=full_width if dtype != "bf16" else None)
         check_fl_launches(hist, "smollm-135m", dtype)
         launches[dtype] = hist["launches"]
         shapes[dtype] = hist["by_shape"]
@@ -3769,6 +4081,7 @@ def main() -> int:
             if dtype == "f32":
                 print(json.dumps({"checkpoint": checkpoint_path(
                     eng, tmp + "/async"), "card": card}), flush=True)
+            full_width += async_contracts(eng, dtype)
             del eng
     for dtype in ("f32", "int8"):
         timing, g = round_timing(dtype)
@@ -3841,8 +4154,11 @@ def main() -> int:
                       "card": card}), flush=True)
     # the sharded FL server: a 1 x 1 NCCL mesh in this process, then a
     # 2 x 2 mesh of 4 processes on the card
-    mesh_report, mesh_rows = mesh_path(kernels, card)
+    mesh_report, mesh_rows, mesh_contracts = mesh_path(kernels, card)
     print(json.dumps({"mesh_path": mesh_report}), flush=True)
+    # the program contracts: the fixture programs on the card, then the
+    # full-width and mesh contracts recorded above
+    analysis_phase(kernels, card, full_width, mesh_contracts)
     print(json.dumps({"kernels": kernel_checks(launches, shapes,
                                                quantile_calls)
                       + hist_checks(launches, shapes) + fl_rows + ssd_checks(

@@ -127,6 +127,100 @@ def staleness_weight(s, acfg: AsyncConfig) -> np.ndarray:
     return np.where(s <= acfg.staleness_max, base, 0.0).astype(np.float32)
 
 
+def admit_contract(index: flat.FlatIndex, mesh=None, *, rows: int):
+    """Declared contract of an admission (``AsyncEngine._admit``): the
+    reference's (``repro.core.async_round.admit_contract``) field by
+    field.  ZERO all-gathers and zero full-pool gathers: each rank trains
+    the dispatched clients whose slots it holds, grafts their whole rows
+    and keeps its columns, so the pool never materializes anywhere.  The
+    pool holds the admission in place (``donated``: position 1 of the
+    engine's resident buffers (g_buf, pool), the reference's parameter 1;
+    g_buf, position 0, is read only).
+
+    ``peak_live_bytes_per_device`` is restated as ``(8 + 5*r) * N * 4``
+    bytes a rank (r the pool rows per data shard; the reference's is
+    ``(2 + 5*r) * N * 4``).  The port trains a client eagerly: its masked
+    parameters, gradients and their masked copy, SGD's momentum, the
+    weight-decayed gradient and the new parameters are each an (N,)
+    tensor at once, where the reference's compiled program fuses the
+    update.  Measured 9.22 N-multiples at r = 1 (a rank of the 4 x 1
+    mesh, against the reference's 7) and 14.2 at r = 3 (one process) on
+    the canonical fixture (``analysis.programs``), so the reference's
+    budget fails at r = 1 by about 6 N of training transients; ROADMAP
+    queue 3 item 32."""
+    from repro_torch.analysis.contracts import Contract
+    r = max(1, rows // csh.data_shards(mesh))
+    return Contract(
+        name="async/admit",
+        description="admit: train dispatch group, select into pool slots",
+        all_gathers=0, full_cohort_gathers=0,
+        cohort_elems=rows * index.n_padded,
+        peak_live_bytes_per_device=(None, (8 + 5 * r) * index.n_padded * 4),
+        donated=frozenset({1}))
+
+
+def merge_contract(index: flat.FlatIndex, mesh=None, *, rows: int):
+    """Declared contract of a merge (``AsyncEngine._merge``): the
+    reference's (``repro.core.async_round.merge_contract``) field by
+    field.  The bounded-staleness merge aggregates the pool with ZERO
+    all-gathers; with model shards it runs 2-D end to end — no
+    reduce-scatter, the partial sums finished by N/n_model all-reduces
+    over ``data`` plus the distributed quantile's histogram planes over
+    ``model`` (the all-reduce cap).  g_buf holds the merge in place
+    (``donated``: position 0 of the engine's resident buffers (g_buf,
+    pool), the reference's parameter 0).  Peak budget ``(6 + 12*r) * N *
+    4`` bytes a rank."""
+    from repro_torch.analysis.contracts import Contract
+    from repro_torch.kernels.fedfa_quantile.multilevel import histogram_elems
+    multi = csh.data_shards(mesh) * csh.model_shards(mesh) > 1
+    ms = csh.model_shards(mesh)
+    r = max(1, rows // csh.data_shards(mesh))
+    kw: Dict[str, Any] = {}
+    if multi and ms == 1:
+        kw = dict(scale_allreduces=(1, None), scale_elems=index.n_padded)
+    elif multi:
+        scale = index.n_padded // ms
+        kw = dict(reduce_scatters=0, scale_allreduces=(1, 2),
+                  scale_elems=scale,
+                  allreduce_max_elems=max(
+                      scale, histogram_elems(r, index.n_segments)))
+    return Contract(
+        name="async/merge" if ms <= 1 else f"async/merge-ms{ms}",
+        description="merge: staleness-weighted aggregation over the pool",
+        all_gathers=0,
+        peak_live_bytes_per_device=(None, (6 + 12 * r) * index.n_padded * 4),
+        donated=frozenset({0}), **kw)
+
+
+def quantized_admit_contract(index: flat.FlatIndex, mesh=None, *,
+                             rows: int):
+    """Declared contract of a QUANTIZED admission (``update_dtype`` int8 or
+    bf16): the reference's
+    (``repro.core.async_round.quantized_admit_contract``) field by field.
+    The layout guarantees of ``admit_contract`` carry over with the pool
+    in four pieces, each holding the admission in place (``donated``:
+    positions 1-4 of the engine's resident buffers (g_buf, x_q, scales, e,
+    e_scales), the reference's parameters 1-4), and error feedback plus
+    quantization adds no sort (the per-segment scale is a max, not a
+    partition).
+
+    ``peak_live_bytes_per_device`` is restated as ``(8 + 6*r) * N * 4``
+    bytes a rank (the reference's is ``(2 + 6*r) * N * 4``), for the
+    eager training transients ``admit_contract`` names: measured 8.72
+    N-multiples at r = 1 (a rank of the 4 x 1 mesh, against the
+    reference's 8) on the canonical fixture; ROADMAP queue 3 item 32."""
+    from repro_torch.analysis.contracts import Contract
+    r = max(1, rows // csh.data_shards(mesh))
+    return Contract(
+        name="async/admit-quant",
+        description="quantized admit: train, EF + quantize, select into "
+                    "pool slots",
+        all_gathers=0, full_cohort_gathers=0,
+        cohort_elems=rows * index.n_padded,
+        peak_live_bytes_per_device=(None, (8 + 6 * r) * index.n_padded * 4),
+        donated=frozenset({1, 2, 3, 4}), sorts=0)
+
+
 class SlotPool:
     """Host-side bookkeeping of the (rows, N) device pool.  ``capacity``
     slots; rows with id >= capacity (a padded pool) are never dispatched

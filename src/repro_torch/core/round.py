@@ -153,6 +153,83 @@ def flat_round(g_buf: torch.Tensor, c_buf: torch.Tensor, cfg: ArchConfig,
     return sums[0] / sums[1]
 
 
+def round_contract(index: flat.FlatIndex, mesh=None, *, rows: int):
+    """The resident round's declared contract (``analysis.contracts``), for
+    a cohort padded to ``rows``: the reference's
+    (``repro.core.round.round_contract``) field by field.
+
+    Always: the full (rows, N) cohort is never all-gathered, both
+    resident buffers hold the round's result in place (``donated``:
+    ``flat_round``'s arguments 0 = g_buf and 1 = the cohort buffer, the
+    reference's parameters 0 and 1), and the per-rank peak stays within
+    ``(6 + 12*r) * N * 4`` bytes, r the rows per data shard.  A buffer
+    replaced by a fresh one, or a materialized cohort replica, blows the
+    budget.
+
+    On a multi-rank data-only mesh the round has no all-gather at all and
+    the (M', γ) partial sums are >= 1 N-sized all-reduce.  With model
+    shards the strict communication bounds live on the aggregation's
+    contract (``kernels.fedfa_agg.ops.accumulate_contract``); the round
+    keeps the reference's ceilings on the re-layout collectives GSPMD
+    emits on its training side (the port issues one: the global's
+    all-gather over ``model``), and no all-gather may exceed one full
+    (N,) row."""
+    from repro_torch.analysis.contracts import Contract
+    multi = csh.data_shards(mesh) * csh.model_shards(mesh) > 1
+    ms = csh.model_shards(mesh)
+    r = max(1, rows // csh.data_shards(mesh))
+    kw: Dict[str, Any] = {}
+    if multi and ms == 1:
+        kw = dict(all_gathers=0, scale_allreduces=(1, None),
+                  scale_elems=index.n_padded)
+    elif multi:
+        kw = dict(all_gathers=(None, 64), all_to_alls=(None, 48),
+                  collective_permutes=(None, 24), reduce_scatters=(0, 8),
+                  max_all_gather_elems=index.n_padded)
+    return Contract(
+        name=f"round/ms{ms}",
+        description="resident round: in-place ping-pong, no cohort gather",
+        full_cohort_gathers=0, cohort_elems=rows * index.n_padded,
+        peak_live_bytes_per_device=(None, (6 + 12 * r) * index.n_padded * 4),
+        donated=frozenset({0, 1}), **kw)
+
+
+def quantized_round_contract(index: flat.FlatIndex, mesh=None, *,
+                             rows: int):
+    """Declared contract of the QUANTIZED resident round (``update_dtype``
+    int8 or bf16): the reference's
+    (``repro.core.round.quantized_round_contract``) field by field, but
+    ``donated``.
+
+    The structural guarantees of ``round_contract`` — no full-cohort
+    gather, zero all-gathers and >= 1 N-sized partial-sum all-reduce on a
+    data mesh, no reduce-scatter — plus the quantization's own, measured
+    on the fused dequantize-accumulate (``agg_ops.accumulate_quant``):
+    exactly 1 read of the quantized rows and 0 sorts, since the rows enter
+    the kernel in their admitted dtype.  Peak budget ``(6 + 10r) * N * 4``
+    bytes a rank.
+
+    ``donated`` is restated as ``{0, 1, 8}``, positions of ``flat_round``:
+    0 = g_buf (the reference's parameter 0), 8 = the quantized state
+    (x_q, scales, e, e_scales), which holds the reference's parameters 1-4
+    in one argument, and 1 = the f32 training buffer the cohort trains
+    into before admission, which the reference has no parameter for (a
+    transient of its compiled round).  ROADMAP queue 3 item 34."""
+    from repro_torch.analysis.contracts import Contract
+    multi = csh.data_shards(mesh) * csh.model_shards(mesh) > 1
+    kw: Dict[str, Any] = {}
+    if multi:
+        kw = dict(all_gathers=0, reduce_scatters=0,
+                  scale_allreduces=(1, None), scale_elems=index.n_padded)
+    r = max(1, rows // csh.data_shards(mesh))
+    return Contract(
+        name="round/quant",
+        description="quantized round: int8 admission, fused dequantize",
+        full_cohort_gathers=0, cohort_elems=rows * index.n_padded,
+        peak_live_bytes_per_device=(None, (6 + 10 * r) * index.n_padded * 4),
+        donated=frozenset({0, 1, 8}), row_reads=1, sorts=0, **kw)
+
+
 class ResidentDriver:
     """Multi-round state: the FlatIndex and one pool per (cohort size,
     admission dtype) — the f32 training buffer and, for a quantized dtype,
@@ -168,13 +245,17 @@ class ResidentDriver:
         self._pools: Dict[Tuple[int, str],
                           Tuple[torch.Tensor, Optional[QuantState]]] = {}
 
+    def pool_key(self, m: int) -> Tuple[int, str]:
+        """The pool an m-client cohort takes: (padded rows, admission
+        dtype)."""
+        return m + csh.pad_rows(m, self.mesh), self.fl.update_dtype
+
     def pool(self, m: int) -> Tuple[torch.Tensor, Optional[QuantState]]:
         """(f32 training buffer, quantized state or None) of an m-client
         cohort at the current admission dtype (this rank's rows of it)."""
-        rows = m + csh.pad_rows(m, self.mesh)
-        key = (rows, self.fl.update_dtype)
+        key = self.pool_key(m)
         if key not in self._pools:
-            r = rows // csh.data_shards(self.mesh)
+            r = key[0] // csh.data_shards(self.mesh)
             cols = flat.pool_cols(self.index, self.mesh, self.fl.use_kernel)
             c_buf = torch.empty((r, self.index.n_padded), dtype=torch.float32,
                                 device=self.device)

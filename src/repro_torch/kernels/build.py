@@ -12,6 +12,7 @@ at once.  Nothing is built or loaded when this module is imported.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -99,6 +100,25 @@ class CudaKernel:
         self.launches += 1
         if shape is not None:
             self.by_shape[shape] += 1
+
+
+# contexts a recorder (``analysis.dispatch.Recorder``) pushes while it
+# runs: each is called as hook(name, inputs) and gives the context a kernel
+# call runs in
+SCOPE_HOOKS: list = []
+
+
+@contextlib.contextmanager
+def kernel_scope(name: str, *inputs):
+    """The context in which every wrapper runs its kernel's launch and its
+    plain version: nothing outside a recording, and inside one a single
+    read of ``inputs`` whose ops are not counted (the reference's
+    ``pallas_call`` rule), so that both routes count alike."""
+    if not SCOPE_HOOKS:
+        yield
+        return
+    with SCOPE_HOOKS[-1](name, inputs):
+        yield
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> None:

@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel, check_input,
-                                       runs_plain, stream_of)
+                                       kernel_scope, runs_plain, stream_of)
 from repro_torch.kernels.fedfa_agg import ref
 
 SCALED_ACCUM = CudaKernel(
@@ -58,14 +58,16 @@ def scaled_accum(x: torch.Tensor, weights: torch.Tensor,
     check_input("x", x, x.dtype, (m, n), x.device)
     check_input("weights", weights, torch.float32, (m,), x.device)
     check_input("mask", mask, torch.float32, (n,), x.device)
-    if runs_plain(x, use_kernel):
-        return ref.scaled_accum_ref(x, weights, mask)
-    out = torch.empty(n, dtype=torch.float32, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    SCALED_ACCUM.launch(x.data_ptr(), DTYPE_CODES[x.dtype], weights.data_ptr(),
-                        mask.data_ptr(), out.data_ptr(), m, n, sms,
-                        stream_of(x), shape=(m, n))
-    return out
+    with kernel_scope("scaled_accum", x, weights, mask):
+        if runs_plain(x, use_kernel):
+            return ref.scaled_accum_ref(x, weights, mask)
+        out = torch.empty(n, dtype=torch.float32, device=x.device)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        SCALED_ACCUM.launch(x.data_ptr(), DTYPE_CODES[x.dtype],
+                            weights.data_ptr(), mask.data_ptr(),
+                            out.data_ptr(), m, n, sms, stream_of(x),
+                            shape=(m, n))
+        return out
 
 
 def quant_accum(x: torch.Tensor, wtab: torch.Tensor, seg: torch.Tensor,
@@ -88,18 +90,68 @@ def quant_accum(x: torch.Tensor, wtab: torch.Tensor, seg: torch.Tensor,
     check_input("mask", mask, torch.float32, (n,), x.device)
     if S < 1:
         raise ValueError("quant_accum needs at least one segment")
-    if runs_plain(x, use_kernel):
-        return ref.quant_accum_ref(x, wtab, seg, mask)
-    if m * S * 4 > _MAX_TABLE_BYTES:
-        raise ValueError(f"quant_accum's (m, S) = ({m}, {S}) table exceeds "
-                         f"one block's {_MAX_TABLE_BYTES} bytes of shared "
-                         f"memory")
-    out = torch.empty(n, dtype=torch.float32, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    QUANT_ACCUM.launch(x.data_ptr(), DTYPE_CODES[x.dtype], wtab.data_ptr(),
-                       seg.data_ptr(), mask.data_ptr(), out.data_ptr(), m, S,
-                       n, sms, stream_of(x), shape=(m, n))
-    return out
+    with kernel_scope("quant_accum", x, wtab, seg, mask):
+        if runs_plain(x, use_kernel):
+            return ref.quant_accum_ref(x, wtab, seg, mask)
+        if m * S * 4 > _MAX_TABLE_BYTES:
+            raise ValueError(f"quant_accum's (m, S) = ({m}, {S}) table "
+                             f"exceeds one block's {_MAX_TABLE_BYTES} bytes "
+                             f"of shared memory")
+        out = torch.empty(n, dtype=torch.float32, device=x.device)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        QUANT_ACCUM.launch(x.data_ptr(), DTYPE_CODES[x.dtype],
+                           wtab.data_ptr(), seg.data_ptr(), mask.data_ptr(),
+                           out.data_ptr(), m, S, n, sms, stream_of(x),
+                           shape=(m, n))
+        return out
+
+
+def accumulate_contract(n_padded: int, mesh=None, rows=None, segs=None):
+    """Declared contract of the aggregation path built on ``accumulate``
+    (``core.flat.aggregate_buffers``; see ``analysis.contracts``): the
+    reference's (``repro.kernels.fedfa_agg.ops.accumulate_contract``)
+    field by field.
+
+    Zero all-gathers, always: the (M', γ) reduction is a per-rank partial
+    sum, never a re-gathered (m, n) cohort.  On a multi-rank data-only
+    mesh the partial sums combine as 1-2 all-reduces of exactly
+    ``n_padded`` elements and no all-reduce exceeds that.  With model
+    shards the reductions take the rank's (m/D, N/M) slice: no
+    reduce-scatter, the sums finished by all-reduces of exactly
+    ``n_padded / n_model`` elements over ``data``, plus the distributed
+    trimmed quantile's histogram planes over ``model`` (bounded via
+    ``segs``, the segment count; independent of N).
+
+    With ``rows`` (the padded cohort row count) the per-rank peak is
+    budgeted at ``(6 + 12*r) * N * 4`` bytes, r = rows per data shard.
+    """
+    from repro_torch.analysis.contracts import Contract
+    from repro_torch.kernels.fedfa_quantile.multilevel import histogram_elems
+    from repro_torch.sharding.cohort import data_shards, model_shards
+    multi = data_shards(mesh) * model_shards(mesh) > 1
+    ms = model_shards(mesh)
+    peak = {}
+    r = max(1, (rows or 1) // data_shards(mesh))
+    if rows is not None:
+        peak = dict(
+            peak_live_bytes_per_device=(None, (6 + 12 * r) * n_padded * 4))
+    if not multi:
+        return Contract(name="agg/1dev",
+                        description="aggregation path, single device",
+                        all_gathers=0, **peak)
+    scale = n_padded // ms
+    cap = scale
+    kw = {}
+    if ms > 1:
+        kw = dict(reduce_scatters=0)
+        if segs is not None:
+            cap = max(scale, histogram_elems(r, segs))
+    kw.update(allreduce_max_elems=cap, scale_allreduces=(1, 2),
+              scale_elems=scale)
+    return Contract(
+        name=f"agg/ms{ms}",
+        description="aggregation path: partial sums, no cohort re-gather",
+        all_gathers=0, **kw, **peak)
 
 
 def _sharded_sum(local, x: torch.Tensor, weights: torch.Tensor, mesh,
@@ -176,17 +228,18 @@ def trimmed_sumsq(w: torch.Tensor, t: torch.Tensor,
     _check_float_rows("w", w)
     check_input("w", w, w.dtype, tuple(w.shape), w.device)
     check_input("t", t, torch.float32, (), w.device)
-    if runs_plain(w, use_kernel):
-        return ref.trimmed_sumsq_ref(w, t)
-    n = w.shape[0]
-    sms = torch.cuda.get_device_properties(w.device).multi_processor_count
-    blocks = max(1, min(sms * 8, -(-n // (256 * 8))))
-    partial = torch.empty(blocks, dtype=torch.float32, device=w.device)
-    out = torch.empty((), dtype=torch.float32, device=w.device)
-    TRIMMED_SUMSQ.launch(w.data_ptr(), DTYPE_CODES[w.dtype], t.data_ptr(),
-                         partial.data_ptr(), out.data_ptr(), n, blocks,
-                         stream_of(w))
-    return out
+    with kernel_scope("trimmed_sumsq", w, t):
+        if runs_plain(w, use_kernel):
+            return ref.trimmed_sumsq_ref(w, t)
+        n = w.shape[0]
+        sms = torch.cuda.get_device_properties(w.device).multi_processor_count
+        blocks = max(1, min(sms * 8, -(-n // (256 * 8))))
+        partial = torch.empty(blocks, dtype=torch.float32, device=w.device)
+        out = torch.empty((), dtype=torch.float32, device=w.device)
+        TRIMMED_SUMSQ.launch(w.data_ptr(), DTYPE_CODES[w.dtype], t.data_ptr(),
+                             partial.data_ptr(), out.data_ptr(), n, blocks,
+                             stream_of(w))
+        return out
 
 
 def trimmed_norm(w_flat: torch.Tensor, t, use_kernel: Optional[bool] = None

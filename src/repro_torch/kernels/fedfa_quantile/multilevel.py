@@ -29,11 +29,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel, check_input,
-                                       runs_plain, stream_of)
+                                       kernel_scope, runs_plain, stream_of)
 from repro_torch.kernels.fedfa_quantile import ref
 
 _BINS = 256
 _LEVELS = 4
+_PATHS = 2      # floor and ceil ranks bracketing the quantile position
 # the kernel keeps 2 x S x 256 planes (an int32 count and a sum in two
 # 32-bit words) in one block's shared memory, 6 KiB per segment of the
 # 227 KB a block can use (and a copy per warp up to S = 4)
@@ -79,20 +80,21 @@ def hist_level_planes(x: torch.Tensor, seg_id: torch.Tensor,
     check_input("hi", hi, torch.int32, (m, 2, S), x.device)
     if sc is not None:
         check_input("sc", sc, torch.float32, (m, S), x.device)
-    if runs_plain(x, use_kernel):
-        return ref.hist_level_planes_ref(x, seg_id, hi, shift, sc)
-    if not 1 <= S <= MAX_SEGMENTS or m > 65535:
-        raise ValueError(f"hist_level takes 1..{MAX_SEGMENTS} segments and "
-                         f"at most 65535 rows, got S={S}, m={m}")
-    ref.check_row_length(C)
-    cnt = torch.zeros((m, 2, S, _BINS), dtype=torch.int32, device=x.device)
-    sq = torch.zeros((m, 2, S, _BINS), dtype=torch.int64, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    HIST_LEVEL.launch(x.data_ptr(), code, seg_id.data_ptr(),
-                      None if sc is None else sc.data_ptr(), hi.data_ptr(),
-                      cnt.data_ptr(), sq.data_ptr(), m, C, S, shift, sms,
-                      stream_of(x), shape=(m, C, shift))
-    return cnt, sq
+    with kernel_scope("hist_level", x, seg_id, hi, sc):
+        if runs_plain(x, use_kernel):
+            return ref.hist_level_planes_ref(x, seg_id, hi, shift, sc)
+        if not 1 <= S <= MAX_SEGMENTS or m > 65535:
+            raise ValueError(f"hist_level takes 1..{MAX_SEGMENTS} segments "
+                             f"and at most 65535 rows, got S={S}, m={m}")
+        ref.check_row_length(C)
+        cnt = torch.zeros((m, 2, S, _BINS), dtype=torch.int32, device=x.device)
+        sq = torch.zeros((m, 2, S, _BINS), dtype=torch.int64, device=x.device)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        HIST_LEVEL.launch(x.data_ptr(), code, seg_id.data_ptr(),
+                          None if sc is None else sc.data_ptr(), hi.data_ptr(),
+                          cnt.data_ptr(), sq.data_ptr(), m, C, S, shift, sms,
+                          stream_of(x), shape=(m, C, shift))
+        return cnt, sq
 
 
 def hist_level(x: torch.Tensor, seg_id: torch.Tensor, hi: torch.Tensor,
@@ -167,22 +169,28 @@ def segment_groups(seg_id: torch.Tensor, S: int):
 def _grouped(hist, x, seg_id, hi, shift, scales, groups):
     """One level's integer planes over every group: a ``hist`` call on each
     group's columns with its segments renumbered from 0, written into one
-    (m, 2, S, 256) pair (zero for a group with no columns here)."""
+    (m, 2, S, 256) pair (zero for a group with no columns here).  The
+    groups' launches, and the copies of their columns they read, are one
+    kernel call over x (``kernel_scope``) for the program contracts."""
     if len(groups) == 1 and groups[0][2:] == (0, x.shape[1]):
         return hist(x, seg_id, hi, shift, scales)
     m, S = x.shape[0], hi.shape[2]
-    cnt = torch.zeros((m, 2, S, _BINS), dtype=torch.int32, device=x.device)
-    sq = torch.zeros((m, 2, S, _BINS), dtype=torch.int64, device=x.device)
-    for g0, g1, c0, c1 in groups:
-        if c1 <= c0:
-            continue
-        c, q = hist(x[:, c0:c1].contiguous(),
-                    (seg_id[c0:c1] - g0).to(torch.int32),
-                    hi[:, :, g0:g1].contiguous(), shift,
-                    None if scales is None else scales[:, g0:g1].contiguous())
-        cnt[:, :, g0:g1] = c
-        sq[:, :, g0:g1] = q
-    return cnt, sq
+    with kernel_scope("hist_level groups", x, seg_id, hi, scales):
+        cnt = torch.zeros((m, 2, S, _BINS), dtype=torch.int32,
+                          device=x.device)
+        sq = torch.zeros((m, 2, S, _BINS), dtype=torch.int64,
+                         device=x.device)
+        for g0, g1, c0, c1 in groups:
+            if c1 <= c0:
+                continue
+            c, q = hist(x[:, c0:c1].contiguous(),
+                        (seg_id[c0:c1] - g0).to(torch.int32),
+                        hi[:, :, g0:g1].contiguous(), shift,
+                        None if scales is None
+                        else scales[:, g0:g1].contiguous())
+            cnt[:, :, g0:g1] = c
+            sq[:, :, g0:g1] = q
+        return cnt, sq
 
 
 def _all_reduce_planes(cnt, sq, mesh):
@@ -241,6 +249,56 @@ def _search(x, seg_id, seg_len, q_seg, scales, hist, mesh=None):
     t = ref.interpolate(v0, v1, frac)
     # no data value lies strictly between adjacent order statistics
     return t, torch.where(t < v1, sqb[:, 0], sqb[:, 1]), levels
+
+
+def histogram_elems(rows: int, segs: int) -> int:
+    """Upper bound on one level's cross-shard histogram payload in elements
+    (``_all_reduce_planes``: the count and Σx² planes in one int64
+    tensor): independent of row length, never O(N).  ``rows`` is the
+    per-data-shard client count."""
+    return 2 * rows * _PATHS * segs * _BINS
+
+
+def multilevel_quantile_contract(slice_bytes=None, *, padded: bool = False,
+                                 name: str = "quantile/multilevel"):
+    """Declared contract of the two-stage path, the reference's
+    (``repro.kernels.fedfa_quantile.multilevel
+    .multilevel_quantile_contract``) field by field: however long the
+    row, the run has exactly ONE row-sized read site (the ``hist_level``
+    call inside the level loop of ``_search``, one site however many
+    levels) and zero sorts.  ``padded=True`` allows the reference's
+    pad-copy read.  ``slice_bytes`` (the local (m, C) slice) budgets the
+    peak at 6x the slice."""
+    from repro_torch.analysis.contracts import Contract
+    peak = {} if slice_bytes is None else dict(
+        peak_live_bytes_per_device=(None, 6 * slice_bytes))
+    return Contract(name=name,
+                    description="two-stage multilevel trimmed quantile",
+                    row_reads=(1, 2) if padded else 1, sorts=0, **peak)
+
+
+def distributed_quantile_contract(rows: int, segs: int, slice_bytes=None,
+                                  peak_mult: int = 8):
+    """The distributed trimmed-norm pass over (data, model)-split rows
+    (``segmented_trimmed_stats(mesh=)``), the reference's
+    (``repro.kernels.fedfa_quantile.multilevel
+    .distributed_quantile_contract``) field by field: exactly 1 row read,
+    0 sorts, and ZERO gathers or re-layout collectives — the only
+    cross-rank traffic is the all-reduce of each level's histogram
+    planes, at most ``histogram_elems(rows, segs)`` elements (never
+    O(N)).  ``rows`` is the PER-DATA-SHARD client count; ``slice_bytes``
+    the local (rows, N/model) slice, budgeting the peak at ``peak_mult``
+    slices."""
+    from repro_torch.analysis.contracts import Contract
+    hist = histogram_elems(rows, segs)
+    peak = {} if slice_bytes is None else dict(
+        peak_live_bytes_per_device=(None, peak_mult * slice_bytes))
+    return Contract(name="quantile/dist",
+                    description="distributed two-stage trimmed quantile",
+                    row_reads=1, sorts=0,
+                    all_gathers=0, reduce_scatters=0, all_to_alls=0,
+                    collective_permutes=0,
+                    allreduce_max_elems=hist, **peak)
 
 
 def row_trimmed_stats_multilevel(rows: torch.Tensor, q: torch.Tensor,

@@ -15,8 +15,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import (CudaKernel, check_input, runs_plain,
-                                       stream_of)
+from repro_torch.kernels.build import (CudaKernel, check_input,
+                                       kernel_scope, runs_plain, stream_of)
 from repro_torch.kernels.fedfa_quantile import multilevel, ref
 
 _LANES = 128
@@ -64,6 +64,60 @@ def cluster_geometry(L: int, itemsize: int, cs: Optional[int] = None):
     return cs, per, smem
 
 
+def fused_quantile_contract(block_bytes=None, *, padded: bool = False):
+    """Declared contract of the fused trimmed-quantile path, the
+    reference's (``repro.kernels.fedfa_quantile.ops
+    .fused_quantile_contract``) field by field: the whole (threshold,
+    trimmed Σw²) computation is ONE ``quantile_fused`` call, so the run
+    reads the cohort row block exactly once and holds zero sort/topk ops
+    (the search runs in the kernel's shared memory).  Counted on the run
+    (``analysis.dispatch``), not on timing.
+
+    With ``block_bytes`` (the (R, L) row-block bytes) the peak is budgeted
+    at 6x the block.  ``padded=True`` declares the reference's
+    non-dividing dispatch (a staged zero-padded block: 1-2 reads, 9x);
+    the port's kernel takes any L and stages nothing, so it reads once
+    there too."""
+    from repro_torch.analysis.contracts import Contract
+    mult, reads = (9, (1, 2)) if padded else (6, 1)
+    peak = {} if block_bytes is None else dict(
+        peak_live_bytes_per_device=(None, mult * block_bytes))
+    return Contract(name="quantile/fused-pad" if padded else "quantile/fused",
+                    description="fused CUDA trimmed quantile"
+                    + (" (non-dividing padded dispatch)" if padded else ""),
+                    row_reads=reads, sorts=0, **peak)
+
+
+def topk_tail_contract(block_bytes=None, *, padded: bool = False):
+    """Declared shape of the sort-based path the fused kernel replaced,
+    kept as a pinned reference point.  The reference pins its top_k
+    tail's jaxpr; the port has no top_k tail, so this pins the counts of
+    the port's plain sort-based version (``ref.row_trimmed_stats_ref``)
+    called outside the wrapper, measured once on the canonical fixtures
+    (``analysis.programs.quantile_reports``) and written here, as the
+    reference wrote its own.  If they shift, the fused-versus-sort
+    comparison basis moved.  Two fields are restated:
+
+      * ``row_reads`` is 8 (the reference's 7): the abs, the sort, the two
+        gathers of the sorted rows, the compare, the square, the select
+        and the sum each read the row block;
+      * ``peak_live_bytes_per_device`` is 6x the block, padded or not (the
+        reference's 4x, 5x ``padded``): ``torch.sort`` returns its int64
+        indices (2 blocks) beside the sorted values, and the abs, the
+        square and the select are blocks of their own.  Measured 5.27x on
+        both fixtures.
+
+    ROADMAP queue 3 item 33.
+    """
+    from repro_torch.analysis.contracts import Contract
+    peak = {} if block_bytes is None else dict(
+        peak_live_bytes_per_device=(None, 6 * block_bytes))
+    return Contract(name="quantile/topk-pad" if padded else "quantile/topk",
+                    description="sort-based plain path (the pre-fusion "
+                    "reference)",
+                    row_reads=8, sorts=1, **peak)
+
+
 def quantile_fused(rows: torch.Tensor, q: torch.Tensor,
                    scale: Optional[torch.Tensor] = None,
                    use_kernel: Optional[bool] = None):
@@ -81,16 +135,18 @@ def quantile_fused(rows: torch.Tensor, q: torch.Tensor,
     check_input("q", q, torch.float32, (R,), rows.device)
     if scale is not None:
         check_input("scale", scale, torch.float32, (R,), rows.device)
-    if runs_plain(rows, use_kernel):
-        return ref.row_trimmed_stats_ref(ref.dequantize_rows(rows, scale), q)
-    cs, per, _ = cluster_geometry(L, rows.element_size())
-    t = torch.empty(R, dtype=torch.float32, device=rows.device)
-    ss = torch.empty(R, dtype=torch.float32, device=rows.device)
-    QUANTILE_FUSED.launch(rows.data_ptr(), code, q.data_ptr(),
-                          None if scale is None else scale.data_ptr(),
-                          t.data_ptr(), ss.data_ptr(), R, L, cs, per,
-                          stream_of(rows), shape=(R, L))
-    return t, ss
+    with kernel_scope("quantile_fused", rows, q, scale):
+        if runs_plain(rows, use_kernel):
+            return ref.row_trimmed_stats_ref(ref.dequantize_rows(rows, scale),
+                                             q)
+        cs, per, _ = cluster_geometry(L, rows.element_size())
+        t = torch.empty(R, dtype=torch.float32, device=rows.device)
+        ss = torch.empty(R, dtype=torch.float32, device=rows.device)
+        QUANTILE_FUSED.launch(rows.data_ptr(), code, q.data_ptr(),
+                              None if scale is None else scale.data_ptr(),
+                              t.data_ptr(), ss.data_ptr(), R, L, cs, per,
+                              stream_of(rows), shape=(R, L))
+        return t, ss
 
 
 def row_trimmed_stats(rows: torch.Tensor, q: torch.Tensor,

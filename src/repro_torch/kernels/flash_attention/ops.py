@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel, check_input,
-                                       stream_of)
+                                       kernel_scope, stream_of)
 from repro_torch.kernels.flash_attention import ref
 
 FLASH_ATTENTION = CudaKernel(
@@ -58,22 +58,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_input("q", q, q.dtype, (B, Sq, H, hd), q.device)
     check_input("k", k, q.dtype, (B, Sk, K, hd), q.device)
     check_input("v", v, q.dtype, (B, Sk, K, hd), q.device)
-    if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("the flash-attention kernel has no "
-                                  "backward; train through attend_blocked")
-    if hd > _MAX_HD or hd % 8:
-        raise ValueError(f"the flash-attention kernel takes hd <= {_MAX_HD}, "
-                         f"a multiple of 8; got {hd}")
-    # the kernel reads q, k and v 16 bytes at a time: a view that starts off
-    # that boundary is copied to storage that does not
-    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
-    out = torch.empty_like(q)
-    FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), DTYPE_CODES[q.dtype], B, Sq, Sk,
-                           H, K, hd, int(causal),
-                           -1 if window is None else window, int(q_offset),
-                           hd ** -0.5, stream_of(q))
-    return out
+    with kernel_scope("flash_attention", q, k, v):
+        if q.device.type == "cpu":
+            return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+        if any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError("the flash-attention kernel has no "
+                                      "backward; train through attend_blocked")
+        if hd > _MAX_HD or hd % 8:
+            raise ValueError(f"the flash-attention kernel takes hd <= "
+                             f"{_MAX_HD}, a multiple of 8; got {hd}")
+        # the kernel reads q, k and v 16 bytes at a time: a view that starts
+        # off that boundary is copied to storage that does not
+        q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
+        out = torch.empty_like(q)
+        FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), DTYPE_CODES[q.dtype], B, Sq, Sk,
+                               H, K, hd, int(causal),
+                               -1 if window is None else window, int(q_offset),
+                               hd ** -0.5, stream_of(q))
+        return out

@@ -12,7 +12,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel, check_input,
-                                       stream_of)
+                                       kernel_scope, stream_of)
 from repro_torch.kernels.ssd import ref
 
 SSD_INTRA_CHUNK = CudaKernel(
@@ -57,33 +57,34 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     check_input("A", A, torch.float32, (nh,), x.device)
     check_input("B", B, x.dtype, (G, Q, N), x.device)
     check_input("C", C, x.dtype, (G, Q, N), x.device)
-    if x.device.type == "cpu":
-        return ref.ssd_intra_chunk_ref(x, dt, A, B, C)
-    if any(t.requires_grad for t in (x, dt, A, B, C)):
-        raise NotImplementedError("ssd_intra_chunk's kernel has no "
-                                  "backward: training takes the plain "
-                                  "chunked SSD (models/ssm.py)")
-    if not (4 <= Q <= _MAX_Q and 4 <= N <= _MAX_N and 4 <= hp <= _MAX_HP
-            and Q % 4 == N % 4 == hp % 4 == 0):
-        raise ValueError(f"ssd_intra_chunk's kernel takes Q <= {_MAX_Q}, "
-                         f"N <= {_MAX_N} and hp <= {_MAX_HP}, each a multiple "
-                         f"of 4; got Q={Q}, N={N}, hp={hp}")
-    # the kernel's 16-byte copies need x, B and C aligned: copy a view
-    # that starts inside a vector
-    x, B, C = (t.clone() if t.data_ptr() % 16 else t for t in (x, B, C))
-    f32 = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty((G, Q, nh, hp), **f32)
-    state = torch.empty((G, nh, hp, N), **f32)
-    L = torch.empty((G, Q, nh), **f32)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    SSD_INTRA_CHUNK.launch(x.data_ptr(), DTYPE_CODES[x.dtype], dt.data_ptr(),
-                           A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                           y.data_ptr(), state.data_ptr(), L.data_ptr(), G, Q,
-                           nh, hp, N,
-                           heads_per_block(G, Q, nh, hp, N, sms,
-                                           x.element_size()),
-                           stream_of(x), shape=(G, Q, nh, hp, N))
-    return y, state, L
+    with kernel_scope("ssd_intra_chunk", x, dt, A, B, C):
+        if x.device.type == "cpu":
+            return ref.ssd_intra_chunk_ref(x, dt, A, B, C)
+        if any(t.requires_grad for t in (x, dt, A, B, C)):
+            raise NotImplementedError("ssd_intra_chunk's kernel has no "
+                                      "backward: training takes the plain "
+                                      "chunked SSD (models/ssm.py)")
+        if not (4 <= Q <= _MAX_Q and 4 <= N <= _MAX_N and 4 <= hp <= _MAX_HP
+                and Q % 4 == N % 4 == hp % 4 == 0):
+            raise ValueError(f"ssd_intra_chunk's kernel takes Q <= {_MAX_Q}, "
+                             f"N <= {_MAX_N} and hp <= {_MAX_HP}, each a "
+                             f"multiple of 4; got Q={Q}, N={N}, hp={hp}")
+        # the kernel's 16-byte copies need x, B and C aligned: copy a view
+        # that starts inside a vector
+        x, B, C = (t.clone() if t.data_ptr() % 16 else t for t in (x, B, C))
+        f32 = dict(dtype=torch.float32, device=x.device)
+        y = torch.empty((G, Q, nh, hp), **f32)
+        state = torch.empty((G, nh, hp, N), **f32)
+        L = torch.empty((G, Q, nh), **f32)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        SSD_INTRA_CHUNK.launch(x.data_ptr(), DTYPE_CODES[x.dtype],
+                               dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                               C.data_ptr(), y.data_ptr(), state.data_ptr(),
+                               L.data_ptr(), G, Q, nh, hp, N,
+                               heads_per_block(G, Q, nh, hp, N, sms,
+                                               x.element_size()),
+                               stream_of(x), shape=(G, Q, nh, hp, N))
+        return y, state, L
 
 
 def ssd(x, dt, A, B, C, chunk: int):

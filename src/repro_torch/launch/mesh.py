@@ -34,8 +34,9 @@ class Mesh:
     group of each axis it lies on (the ranks that share its data index
     form its ``model`` group, those that share its model index its
     ``data`` group), its device and backend, ``counts`` of the
-    collectives issued and the ``staged_bytes`` that gloo copied between
-    the card and the host for them (``sharding.collectives``)."""
+    collectives issued, their records in ``ops`` (``analysis.comms``) and
+    the ``staged_bytes`` that gloo copied between the card and the host
+    for them (``sharding.collectives``)."""
 
     axis_names = (DATA_AXIS, MODEL_AXIS)
 
@@ -46,6 +47,7 @@ class Mesh:
         self.device, self.backend = device, backend
         self.owns_world = owns_world
         self.counts: collections.Counter = collections.Counter()
+        self.ops: list = []
         self.staged_bytes = 0
 
     @property

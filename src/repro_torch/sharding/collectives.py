@@ -3,12 +3,16 @@
 ``all_gather`` lower to in the reference.
 
 Each call adds one to ``mesh.counts[(kind, axis, elements)]``, the
-per-rank element count of its input, so that tests and ``chip_smoke.py``
-can hold a round to the reference's ``accumulate_contract``: no
-all-gather in the aggregation, one N/M all-reduce over ``data`` for each
-of M' and Γ, and every other all-reduce no larger than the histogram
-planes.  A call is issued even over an axis of one rank, so that a 1 x 1
-mesh runs the same collectives as a larger one.
+per-rank element count of its input, and appends an
+``analysis.comms.CollectiveOp`` to ``mesh.ops`` with its result's size
+and the ``repro_torch`` file and line that issued it (the first frame
+outside this module), so that tests, ``chip_smoke.py`` and the program
+contracts (``analysis.contracts``) can hold a round to the reference's
+``accumulate_contract``: no all-gather in the aggregation, one N/M
+all-reduce over ``data`` for each of M' and Γ, and every other
+all-reduce no larger than the histogram planes.  A call is issued even
+over an axis of one rank, so that a 1 x 1 mesh runs the same collectives
+as a larger one.
 
 Every rank of a group must issue the same calls in the same order: a rank
 that skips one leaves its peers waiting.  Gloo takes each of these
@@ -21,13 +25,36 @@ mesh issues on CUDA tensors; NCCL and CPU tensors stage none.
 """
 from __future__ import annotations
 
+import os
+import sys
+
 import torch
 import torch.distributed as dist
+
+from repro_torch.analysis.comms import KIND_OF, CollectiveOp
+
+_HERE = os.path.abspath(__file__)
+_PORT = os.path.dirname(os.path.dirname(_HERE)) + os.sep
+
+
+def _issuer():
+    """(file, line) of the first frame outside this module that lies in
+    ``repro_torch``, or (None, None)."""
+    f = sys._getframe(2)
+    while f is not None:
+        fn = os.path.abspath(f.f_code.co_filename)
+        if fn != _HERE and fn.startswith(_PORT):
+            return fn, f.f_lineno
+        f = f.f_back
+    return None, None
 
 
 def _count(mesh, kind: str, axis: str, x: torch.Tensor,
            out: torch.Tensor) -> None:
     mesh.counts[(kind, axis, x.numel())] += 1
+    mesh.ops.append(CollectiveOp(KIND_OF[kind], axis, out.numel(),
+                                 out.numel() * out.element_size(),
+                                 *_issuer()))
     if mesh.backend == "gloo" and x.is_cuda:
         mesh.staged_bytes += (x.numel() * x.element_size()
                               + out.numel() * out.element_size())

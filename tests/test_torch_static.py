@@ -191,7 +191,10 @@ NEW_MODULES = (
         "mamba2_130m", "minicpm_2b", "phi35_moe", "recurrentgemma_2b",
         "smollm_135m", "tinyllama_1_1b", "whisper_base")]
     + ["launch/costs.py", "launch/dryrun.py", "launch/dryrun_fedfa.py",
-       "sharding/specs.py", "sharding/hints.py", "sharding/padding.py"])
+       "sharding/specs.py", "sharding/hints.py", "sharding/padding.py"]
+    + [f"analysis/{m}.py" for m in (
+        "__init__", "__main__", "blame", "comms", "contracts", "dispatch",
+        "lint", "memory", "passes", "programs")])
 
 
 def test_cost_model_imports_no_torch():
