@@ -1,0 +1,6 @@
+"""Aggregation's ms a round: the span around ``aggregate_buffers``."""
+from bench.readers import span_mean
+
+
+def read(h):
+    return span_mean(h, "aggregate")
