@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.masking import (active_fraction, axis_mask_tree,
                                       mask_density)
@@ -425,70 +426,73 @@ def admit_quantized(index: FlatIndex, cfg: ArchConfig, x: torch.Tensor,
     ``model`` (one all-reduce for y's, one for the residual's), so a
     segment cut by a shard's edge is quantized as on one device and every
     rank holds the whole (m, S) scale tables."""
-    x_q, scales, e_q, e_s = state
-    cols = cols or slice(0, index.n_padded)
-    m = x.shape[0]
-    seg0s = [spec.seg0 for spec in index.leaves]
-    axs = [dict(leaves_with_path(axis_mask_tree(cfg, masks.client(c))))
-           for c in range(m)]
-    rows = torch.arange(m, device=x.device)[:, None]
-    dens_of = {}
+    with tracing.span("admit"):
+        x_q, scales, e_q, e_s = state
+        cols = cols or slice(0, index.n_padded)
+        m = x.shape[0]
+        seg0s = [spec.seg0 for spec in index.leaves]
+        axs = [dict(leaves_with_path(axis_mask_tree(cfg, masks.client(c))))
+               for c in range(m)]
+        rows = torch.arange(m, device=x.device)[:, None]
+        dens_of = {}
 
-    def y_of(p):
-        """y = (x + dequantize(e))·dens on the piece, as (m, k, rest)."""
-        s0, k, rest, a, _ = p
-        li = bisect.bisect_right(seg0s, s0) - 1
-        spec = index.leaves[li]
-        j = s0 - spec.seg0
-        c = cols.start + a - spec.offset - j * spec.rest   # within the row
-        xl = _leaf_rows(x, spec)
-        xl = xl[rows, gmaps[:, j:j + k]] if (graft and spec.stacked
-                                             and spec.stage == 0) \
-            else xl[:, j:j + k]
-        y = xl[..., c:c + rest] + _dequantize_rows(_piece_rows(e_q, p),
-                                                   e_s[:, s0:s0 + k])
-        if li not in dens_of:
-            dens_of.clear()
-            dens_of[li] = torch.stack([mask_density(spec.shape,
-                                                    axs[i][spec.path])
-                                       for i in range(m)]).to(x.device)
-        dens = dens_of[li]
-        if (k, rest) == (spec.lead, spec.rest):          # the whole leaf
-            return (y.view((m,) + spec.shape) * dens).view(y.shape)
-        return y * torch.broadcast_to(dens, (m,) + spec.shape).reshape(
-            m, spec.lead, spec.rest)[:, j:j + k, c:c + rest]
+        def y_of(p):
+            """y = (x + dequantize(e))·dens on the piece, as (m, k, rest)."""
+            s0, k, rest, a, _ = p
+            li = bisect.bisect_right(seg0s, s0) - 1
+            spec = index.leaves[li]
+            j = s0 - spec.seg0
+            c = cols.start + a - spec.offset - j * spec.rest   # within the row
+            xl = _leaf_rows(x, spec)
+            xl = xl[rows, gmaps[:, j:j + k]] if (graft and spec.stacked
+                                                 and spec.stage == 0) \
+                else xl[:, j:j + k]
+            y = xl[..., c:c + rest] + _dequantize_rows(_piece_rows(e_q, p),
+                                                       e_s[:, s0:s0 + k])
+            if li not in dens_of:
+                dens_of.clear()
+                dens_of[li] = torch.stack([mask_density(spec.shape,
+                                                        axs[i][spec.path])
+                                           for i in range(m)]).to(x.device)
+            dens = dens_of[li]
+            if (k, rest) == (spec.lead, spec.rest):          # the whole leaf
+                return (y.view((m,) + spec.shape) * dens).view(y.shape)
+            return y * torch.broadcast_to(dens, (m,) + spec.shape).reshape(
+                m, spec.lead, spec.rest)[:, j:j + k, c:c + rest]
 
-    pieces = _pieces(index, cols)
-    y_max = e_max = None
-    if update_dtype == "int8" and cols != slice(0, index.n_padded):
-        y_max = torch.zeros((m, index.n_segments), device=x.device)
-        e_max = torch.zeros_like(y_max)
+        pieces = _pieces(index, cols)
+        y_max = e_max = None
+        if update_dtype == "int8" and cols != slice(0, index.n_padded):
+            y_max = torch.zeros((m, index.n_segments), device=x.device)
+            e_max = torch.zeros_like(y_max)
+            for p in pieces:
+                y_max[:, p[0]:p[0] + p[1]] = torch.amax(torch.abs(y_of(p)),
+                                                        dim=2)
+            coll.all_reduce(y_max, mesh, csh.MODEL_AXIS, op="max")
+            for p in pieces:
+                y = y_of(p)
+                q, s = _quantize_rows(y, update_dtype,
+                                      y_max[:, p[0]:p[0] + p[1]])
+                e_max[:, p[0]:p[0] + p[1]] = torch.amax(
+                    torch.abs(y - _dequantize_rows(q, s)), dim=2)
+            coll.all_reduce(e_max, mesh, csh.MODEL_AXIS, op="max")
         for p in pieces:
-            y_max[:, p[0]:p[0] + p[1]] = torch.amax(torch.abs(y_of(p)), dim=2)
-        coll.all_reduce(y_max, mesh, csh.MODEL_AXIS, op="max")
-        for p in pieces:
+            segs = slice(p[0], p[0] + p[1])
             y = y_of(p)
-            q, s = _quantize_rows(y, update_dtype, y_max[:, p[0]:p[0] + p[1]])
-            e_max[:, p[0]:p[0] + p[1]] = torch.amax(
-                torch.abs(y - _dequantize_rows(q, s)), dim=2)
-        coll.all_reduce(e_max, mesh, csh.MODEL_AXIS, op="max")
-    for p in pieces:
-        segs = slice(p[0], p[0] + p[1])
-        y = y_of(p)
-        q, s = _quantize_rows(y, update_dtype,
-                              None if y_max is None else y_max[:, segs])
-        e = y - _dequantize_rows(q, s)
-        eq, es = _quantize_rows(e, update_dtype,
-                                None if e_max is None else e_max[:, segs])
-        _piece_rows(x_q, p).copy_(q)
-        scales[:, segs] = s
-        _piece_rows(e_q, p).copy_(eq)
-        e_s[:, segs] = es
-    if y_max is not None:
-        # the scales _quantize_rows takes from these maxima, for the
-        # segments with no column here too (y_of has read the old e_s)
-        scales.copy_(y_max / 127.0)
-        e_s.copy_(e_max / 127.0)
+            q, s = _quantize_rows(y, update_dtype,
+                                  None if y_max is None else y_max[:, segs])
+            e = y - _dequantize_rows(q, s)
+            eq, es = _quantize_rows(e, update_dtype,
+                                    None if e_max is None else e_max[:, segs])
+            _piece_rows(x_q, p).copy_(q)
+            scales[:, segs] = s
+            _piece_rows(e_q, p).copy_(eq)
+            e_s[:, segs] = es
+        if y_max is not None:
+            # the scales _quantize_rows takes from these maxima, for the
+            # segments with no column here too (y_of has read the old e_s)
+            scales.copy_(y_max / 127.0)
+            e_s.copy_(e_max / 127.0)
 
 
 def _device_seg_id(index: FlatIndex, device) -> torch.Tensor:
@@ -615,57 +619,64 @@ def aggregate_buffers(index: FlatIndex, g_flat: torch.Tensor, x: torch.Tensor,
     if x.shape[1] not in (index.n_padded, width):
         raise ValueError(f"cohort rows of {x.shape[1]} columns: expected "
                          f"{index.n_padded} or this rank's {width}")
-    dens, fracs = _density_rows(cfg, index, masks, cols, x.device)
-    if scales is None:
-        if graft and not pregrafted:
-            if x.shape[1] != index.n_padded:
-                raise ValueError("grafting needs whole rows")
-            x_g = _graft_flat(index, x, gmaps)
-            if width != index.n_padded:
-                x_g = x_g[:, cols].contiguous()
-        else:
-            x_g = (x[:, cols] if x.shape[1] != width else x).clone(
-                memory_format=torch.contiguous_format)
-    else:   # quantized rows arrive grafted and density-masked
-        x_g = x if x.shape[1] == width else x[:, cols].contiguous()
+    with tracing.span("aggregate"):
+        with tracing.span("aggregate/densities"):
+            dens, fracs = _density_rows(cfg, index, masks, cols, x.device)
+        if scales is None:
+            with tracing.span("aggregate/graft"):
+                if graft and not pregrafted:
+                    if x.shape[1] != index.n_padded:
+                        raise ValueError("grafting needs whole rows")
+                    x_g = _graft_flat(index, x, gmaps)
+                    if width != index.n_padded:
+                        x_g = x_g[:, cols].contiguous()
+                else:
+                    x_g = (x[:, cols] if x.shape[1] != width else x).clone(
+                        memory_format=torch.contiguous_format)
+                x_g.mul_(dens)                       # x_g is now x_g·dens
+        else:   # quantized rows arrive grafted and density-masked
+            x_g = x if x.shape[1] == width else x[:, cols].contiguous()
 
-    dwrow = None   # grafting weights every depth slot equally
-    if not graft:  # depth gates weight stage-0 rows; everything else 1
-        stage0 = torch.as_tensor(index.seg_stage0, device=x.device)
-        seg_row = torch.as_tensor(index.seg_row, dtype=torch.int64,
-                                  device=x.device).clamp(max=gates.shape[1] - 1)
-        dwrow = torch.where(stage0[None, :], gates[:, seg_row], 1.0)
+        dwrow = None   # grafting weights every depth slot equally
+        if not graft:  # depth gates weight stage-0 rows; everything else 1
+            stage0 = torch.as_tensor(index.seg_stage0, device=x.device)
+            seg_row = torch.as_tensor(index.seg_row, dtype=torch.int64,
+                                      device=x.device).clamp(
+                                          max=gates.shape[1] - 1)
+            dwrow = torch.where(stage0[None, :], gates[:, seg_row], 1.0)
 
-    if scales is None:
-        x_g.mul_(dens)                               # x_g is now x_g·dens
-    warow = dwrow
-    if scale:
-        _, ss = _cohort_stats(index, x_g, fracs, trim, scales, use_kernel,
-                              mesh, cols if is_2d else None)
-        norms = torch.sqrt(ss)                                      # (m, S)
-        valid = (n_data > 0).to(torch.float32)
-        sums = torch.cat([torch.sum(valid[:, None] * norms, dim=0),
-                          torch.sum(valid)[None]])
-        if mesh is not None:    # the mean over every real row of the cohort
-            coll.all_reduce(sums, mesh, csh.DATA_AXIS)
-        mean_norms = sums[None, :-1] / torch.clamp_min(sums[-1], 1.0)
-        alpha = mean_norms / torch.clamp_min(norms, eps)
-        warow = alpha if dwrow is None else dwrow * alpha
-    ones_n = torch.ones(width, dtype=torch.float32, device=x.device)
-    if scales is None:
-        contrib = x_g if warow is None else _scale_segments(index, x_g, warow,
-                                                            cols)
-        Mp = agg_ops.accumulate(contrib, n_data, ones_n, cohort_2d=is_2d,
-                                **kc)
-        del contrib
-    else:   # scale·α·gate fold into one (m, S) table read inside the kernel
-        coeff = scales if warow is None else warow * scales
-        Mp = agg_ops.accumulate_quant(
-            x_g, n_data, coeff, _device_seg_id(index, x.device)[cols],
-            ones_n, cohort_2d=is_2d, **kc)
-    del x_g
-    counts = dens if dwrow is None else _scale_segments(index, dens, dwrow,
-                                                        cols)
-    Gm = agg_ops.accumulate(counts, n_data, ones_n, cohort_2d=is_2d, **kc)
-    upd = Mp / torch.clamp_min(Gm, eps)
-    return torch.where(Gm > 0, upd, g_flat)        # γ = 0 keeps the global
+        warow = dwrow
+        if scale:
+            with tracing.span("aggregate/norms"):
+                _, ss = _cohort_stats(index, x_g, fracs, trim, scales,
+                                      use_kernel, mesh,
+                                      cols if is_2d else None)
+                norms = torch.sqrt(ss)                              # (m, S)
+                valid = (n_data > 0).to(torch.float32)
+                sums = torch.cat([torch.sum(valid[:, None] * norms, dim=0),
+                                  torch.sum(valid)[None]])
+                if mesh is not None:   # the mean over every real row
+                    coll.all_reduce(sums, mesh, csh.DATA_AXIS)
+                mean_norms = sums[None, :-1] / torch.clamp_min(sums[-1], 1.0)
+                alpha = mean_norms / torch.clamp_min(norms, eps)
+                warow = alpha if dwrow is None else dwrow * alpha
+        with tracing.span("aggregate/accumulate"):
+            ones_n = torch.ones(width, dtype=torch.float32, device=x.device)
+            if scales is None:
+                contrib = x_g if warow is None else _scale_segments(
+                    index, x_g, warow, cols)
+                Mp = agg_ops.accumulate(contrib, n_data, ones_n,
+                                        cohort_2d=is_2d, **kc)
+                del contrib
+            else:   # scale·α·gate fold into one (m, S) table in the kernel
+                coeff = scales if warow is None else warow * scales
+                Mp = agg_ops.accumulate_quant(
+                    x_g, n_data, coeff, _device_seg_id(index, x.device)[cols],
+                    ones_n, cohort_2d=is_2d, **kc)
+            del x_g
+            counts = dens if dwrow is None else _scale_segments(
+                index, dens, dwrow, cols)
+            Gm = agg_ops.accumulate(counts, n_data, ones_n, cohort_2d=is_2d,
+                                    **kc)
+            upd = Mp / torch.clamp_min(Gm, eps)
+            return torch.where(Gm > 0, upd, g_flat)  # γ = 0 keeps the global

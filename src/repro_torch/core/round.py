@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import flat
 from repro_torch.core.fedfa import STRATEGIES
@@ -269,10 +270,13 @@ class ResidentDriver:
         """One round on the resident buffer; returns the mean local loss."""
         if any(s.malicious for s in specs) and perms is None:
             raise ValueError("a cohort with attackers needs label perms")
-        c_buf, qstate = self.pool(len(specs))
-        runtimes = stack_runtimes(self.cfg, specs, self.device)
-        return flat_round(g_buf, c_buf, self.cfg, self.fl, self.index,
-                          runtimes, batches, perms, qstate, mesh=self.mesh)
+        with tracing.span("round"):
+            c_buf, qstate = self.pool(len(specs))
+            with tracing.span("round/runtimes"):
+                runtimes = stack_runtimes(self.cfg, specs, self.device)
+            return flat_round(g_buf, c_buf, self.cfg, self.fl, self.index,
+                              runtimes, batches, perms, qstate,
+                              mesh=self.mesh)
 
 
 def label_count(batches, task: str) -> int:

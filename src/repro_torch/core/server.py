@@ -16,6 +16,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import attacks as attacks_mod
 from repro_torch.core import fedfa, flat
@@ -100,22 +101,29 @@ def cohort_update(global_params: Params, cfg: ArchConfig, fl: FLConfig,
     with the malicious label-shuffle branch for attackers.  Client i's
     updated model is flattened into ``out[i]``; returns the (m,) mean local
     losses.  ``perms`` (m, E·B) permutes the attackers' labels."""
-    losses = []
-    for i in range(out.shape[0]):
-        batches = {k: v[i] for k, v in client_batches.items()}
-        kw = dict(masks=masks.client(i), gates=gates[i], lr=fl.lr,
-                  task=fl.task, class_mask=None if cms is None else cms[i],
-                  optimizer=cfg.optimizer, momentum=cfg.momentum,
-                  weight_decay=cfg.weight_decay)
-        params, step_losses = local_update(global_params, cfg, batches, **kw)
-        if bool(mal[i]):
-            poisoned = attacks_mod.shuffle_labels(batches, perms[i], fl.task)
-            bad, _ = local_update(global_params, cfg, poisoned, **kw)
-            params = attacks_mod.combine_malicious(global_params, params, bad,
-                                                   fl.attack_lambda)
-        flat.flatten(index, params, out=out[i])
-        losses.append(torch.mean(step_losses))
-    return torch.stack(losses)
+    with tracing.span("train"):
+        losses = []
+        for i in range(out.shape[0]):
+            with tracing.span("train/client", client=i):
+                batches = {k: v[i] for k, v in client_batches.items()}
+                kw = dict(masks=masks.client(i), gates=gates[i], lr=fl.lr,
+                          task=fl.task,
+                          class_mask=None if cms is None else cms[i],
+                          optimizer=cfg.optimizer, momentum=cfg.momentum,
+                          weight_decay=cfg.weight_decay)
+                params, step_losses = local_update(global_params, cfg,
+                                                   batches, **kw)
+                with tracing.span("train/client/pack"):
+                    if tracing.to_host(mal[i], bool):
+                        poisoned = attacks_mod.shuffle_labels(
+                            batches, perms[i], fl.task)
+                        bad, _ = local_update(global_params, cfg, poisoned,
+                                              **kw)
+                        params = attacks_mod.combine_malicious(
+                            global_params, params, bad, fl.attack_lambda)
+                    flat.flatten(index, params, out=out[i])
+                    losses.append(torch.mean(step_losses))
+        return torch.stack(losses)
 
 
 def fl_round(global_params: Params, cfg: ArchConfig, fl: FLConfig,

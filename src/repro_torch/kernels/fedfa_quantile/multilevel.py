@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel, check_input,
                                        kernel_scope, runs_plain, stream_of)
 from repro_torch.kernels.fedfa_quantile import ref
@@ -132,9 +133,10 @@ def segmented_trimmed_stats(x: torch.Tensor, seg_id: torch.Tensor,
     all-reduced over ``model`` — one all-reduce a level, every rank the
     same — and t, ss are the whole rows'.
     """
-    t, ss, _ = _search(x, seg_id, seg_len, q_seg, scales,
-                       functools.partial(hist_level_planes,
-                                         use_kernel=use_kernel), mesh)
+    with tracing.span("aggregate/norms/multilevel"):
+        t, ss, _ = _search(x, seg_id, seg_len, q_seg, scales,
+                           functools.partial(hist_level_planes,
+                                             use_kernel=use_kernel), mesh)
     return t, ss
 
 
@@ -156,12 +158,13 @@ def segment_groups(seg_id: torch.Tensor, S: int):
     if S <= MAX_SEGMENTS:
         return [(0, S, 0, C)]
     key = torch.where(seg_id < 0, S, seg_id)
-    if bool(torch.any(key[1:] < key[:-1])):
+    if tracing.to_host(torch.any(key[1:] < key[:-1]), bool):
         raise ValueError("segment ids must not decrease (apart from −1 at "
                          "the end) to be cut into groups")
     bounds = list(range(0, S, MAX_SEGMENTS)) + [S]
-    c = torch.searchsorted(key, torch.tensor(bounds, dtype=key.dtype,
-                                             device=key.device)).tolist()
+    c = tracing.to_host(torch.searchsorted(
+        key, torch.tensor(bounds, dtype=key.dtype, device=key.device)),
+        torch.Tensor.tolist)
     return [(bounds[i], bounds[i + 1], c[i], c[i + 1])
             for i in range(len(bounds) - 1)]
 

@@ -12,17 +12,19 @@ Builds one round of the main path at full size (smollm-135m, 8 clients of
 the width pool, batch 8, sequence 64, 2 local steps, fedfa), runs one
 warm-up round, then times local training (``server.cohort_update``), the
 quantized admission (``flat.admit_quantized``, int8 and bf16 only) and
-aggregation (``flat.aggregate_buffers``) with CUDA events, and traces one
-more round with ``torch.profiler``: the operators with the most device
-time, the number of device kernels, and the device's busy share of the
-traced window.  With ``--serve`` it traces instead ``launch.serve``'s
-engine at full size: the prefill of ``--batch`` prompts and then 8 decode
-steps (after a warm-up request).  With ``--chunked`` it traces one
-``make_prefill_step`` of ``--arch`` at full size, in chunks of its
-``prefill_chunk`` (after a warm-up step).  Both take ``--n-layers`` to cut
-the full-size model's depth.  With ``--dense`` it traces one full-size
-``--mode dense`` train step (batch 8, sequence 64, after a warm-up step)
-and its forward and backward alone, the rest being the optimizer.
+aggregation (``flat.aggregate_buffers``) from the program's spans over
+one ``round.flat_round``, with every span's totals, and traces one more
+round with ``torch.profiler``: the operators with the most device time,
+the number of device kernels, and the device's busy share of the traced
+window (the union of the kernels' intervals).  With ``--serve`` it traces
+instead ``launch.serve``'s engine at full size: the prefill of ``--batch``
+prompts and then 8 decode steps (after a warm-up request).  With
+``--chunked`` it traces one ``make_prefill_step`` of ``--arch`` at full
+size, in chunks of its ``prefill_chunk`` (after a warm-up step).  Both
+take ``--n-layers`` to cut the full-size model's depth.  With ``--dense``
+it traces one full-size ``--mode dense`` train step (batch 8, sequence
+64, after a warm-up step) and its forward and backward alone, the rest
+being the optimizer.
 Prints one JSON object.  Needs a CUDA device.
 """
 from __future__ import annotations
@@ -46,8 +48,8 @@ def full_round(m: int = 8, seed: int = 1, device=None,
     full size, or at the CLI's 4-layer cut unless ``full_size``."""
     from repro_torch.core import flat
     from repro_torch.core.round import fresh_quant_state
-    from repro_torch.core.server import (FLConfig, default_class_masks,
-                                         make_client_specs, stack_runtimes)
+    from repro_torch.core.server import (FLConfig, make_client_specs,
+                                         stack_runtimes)
     from repro_torch.data import partition, pipeline, synthetic
     from repro_torch.launch import train
     from repro_torch.models.model import init_params
@@ -73,76 +75,64 @@ def full_round(m: int = 8, seed: int = 1, device=None,
         c_buf=torch.empty((m, index.n), device=dev), runtimes=runtimes,
         qstate=None if update_dtype == "f32" else fresh_quant_state(
             index, m, update_dtype, dev),
-        cms=default_class_masks(runtimes[4], cfg, fl, m, dev),
         batches={k: torch.as_tensor(v, dtype=torch.int64, device=dev)
                  for k, v in b.items()})
 
 
-def _phases(r: dict):
-    """The named phases of one round, as ``round.flat_round`` runs them:
-    train, (admit,) aggregate."""
-    from repro_torch.core import flat
-    from repro_torch.core.fedfa import STRATEGIES
-    from repro_torch.core.server import cohort_update
-    cfg, fl, index, qstate = r["cfg"], r["fl"], r["index"], r["qstate"]
-    masks, gates, gmaps, nd, _, mal = r["runtimes"]
-    kw = STRATEGIES[fl.strategy]
-
-    def train():
-        cohort_update(flat.unflatten(index, r["g_buf"]), cfg, fl, index, masks,
-                      gates, r["batches"], r["cms"], mal, None, r["c_buf"])
-
-    def admit():
-        flat.admit_quantized(index, cfg, r["c_buf"], masks, gmaps,
-                             bool(kw.get("graft", False)), qstate,
-                             fl.update_dtype)
-
-    def aggregate():
-        if qstate is None:
-            g_new = flat.aggregate_buffers(
-                index, r["g_buf"], r["c_buf"], cfg, masks, gates, gmaps, nd,
-                trim=fl.trim, use_kernel=fl.use_kernel, **kw)
-        else:
-            g_new = flat.aggregate_buffers(
-                index, r["g_buf"], qstate[0], cfg, masks, gates, gmaps, nd,
-                trim=fl.trim, scales=qstate[1], pregrafted=True,
-                use_kernel=fl.use_kernel, **kw)
-        r["g_buf"].copy_(g_new)
-    if qstate is None:
-        return [("train", train), ("aggregate", aggregate)]
-    return [("train", train), ("admit", admit), ("aggregate", aggregate)]
+def _round(r: dict) -> torch.Tensor:
+    """One ``round.flat_round`` on ``r``'s resident state."""
+    from repro_torch.core.round import flat_round
+    return flat_round(r["g_buf"], r["c_buf"], r["cfg"], r["fl"], r["index"],
+                      r["runtimes"], r["batches"], qstate=r["qstate"])
 
 
 def breakdown(r: dict) -> dict:
-    """Device time of each phase of one round (ms), after one warm-up
-    round, and the peak device memory of the timed round (GiB)."""
-    phases = _phases(r)
-    for _, fn in phases:
-        fn()
+    """Stream time (ms) of one round and of its phases — training, the
+    quantized admission (int8 and bf16 only) and aggregation — from the
+    program's spans (``repro_torch.tracing``) over a ``round.flat_round``
+    after one warm-up round; every span's totals (``spans``: parent,
+    calls, stream and host ms, counts); and the peak device memory of the
+    traced round (GiB)."""
+    from repro_torch import tracing
+    _round(r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(phases) + 1)]
-    ev[0].record()
-    for i, (_, fn) in enumerate(phases):
-        fn()
-        ev[i + 1].record()
-    torch.cuda.synchronize()
-    out = {f"{name}_ms": ev[i].elapsed_time(ev[i + 1])
-           for i, (name, _) in enumerate(phases)}
-    out["round_ms"] = ev[0].elapsed_time(ev[-1])
+    tracing.start("cuda")
+    try:
+        with tracing.span("round"):
+            _round(r)
+    finally:
+        rec = tracing.stop()
+    spans = rec.tree()
+    phases = ["train"] + (["admit"] if "admit" in spans else []) \
+        + ["aggregate", "round"]
+    out = {f"{name}_ms": spans[name]["stream_ms"] for name in phases}
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["spans"] = spans
     return out
 
 
 def trace(r: dict, top: int) -> dict:
     """One traced round: top operators by device time and the busy share."""
-    return _report(_trace([fn for _, fn in _phases(r)]), top)
+    return _report(_trace([lambda: _round(r)]), top)
+
+
+def _busy_us(intervals) -> float:
+    """The time (us) the union of [start, end) intervals covers: kernels
+    that overlap count once."""
+    busy, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy
 
 
 def _trace(fns) -> dict:
     """Trace one call of each of ``fns``, in order: wall and device busy
-    time (ms), the device kernels, and each operator's calls and device
-    ms."""
+    time (ms; busy the union of the kernels' intervals), the device
+    kernels, and each operator's calls and device ms."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -157,8 +147,8 @@ def _trace(fns) -> dict:
     kernels = [e for e in prof.events()
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     return {"wall_ms": wall_ms,
-            "device_busy_ms": sum(e.time_range.elapsed_us()
-                                  for e in kernels) / 1e3,
+            "device_busy_ms": _busy_us((e.time_range.start, e.time_range.end)
+                                       for e in kernels) / 1e3,
             "device_kernels": len(kernels),
             "ops": {e.key: (e.count, dev_us(e) / 1e3)
                     for e in prof.key_averages()}}
