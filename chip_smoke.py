@@ -5,7 +5,10 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-   per source, all at once).
+   per source, all at once), then holds quantized admission's kernel
+   against its plain version on the card bit for bit and times it
+   (``quant_admit_checks``: the 4-layer layout, full-size segments, m = 16
+   at full size; one JSON line).
 3. Checks the port on the card against the port on the CPU at the 4-layer
    test size: two resident rounds with an attacker, same seed, same
    weights (losses and the global model at rtol 1e-3 / atol 1e-4: f32
@@ -519,7 +522,8 @@ def small_async_check() -> dict:
 ASYNC_PER_MERGE = {"f32": {"scaled_accum": 2, "quantile_fused": 5,
                            "hist_level": 24},
                    "int8": {"scaled_accum": 1, "quant_accum": 1,
-                            "quantile_fused": 5, "hist_level": 24}}
+                            "quantile_fused": 5, "hist_level": 24,
+                            "quant_admit": 3}}
 
 
 def async_path(kernels, update_dtype: str, ckpt=None) -> dict:
@@ -854,7 +858,8 @@ def fl_expected_launches(arch: str, update_dtype: str, rounds: int = 2,
     """Each kernel's launches by shape on ``main_path`` at full size:
     every single-pass leaf one ``quantile_fused`` and every multilevel leaf
     four ``hist_level`` levels a round; ``scaled_accum`` twice a round at
-    f32 (M' and Γ) and once quantized, where ``quant_accum`` takes M'; for
+    f32 (M' and Γ) and once quantized, where ``quant_accum`` takes M' and
+    admission takes ``quant_admit`` three times (int8) or once (bf16); for
     an SSD model ``ssd_intra_chunk`` once a layer in each forward without
     a gradient — the evaluation's; training takes the plain chunked SSD.
     At phi3.5-moe's 4-layer cut (``full_size`` False) every row is at most
@@ -869,6 +874,8 @@ def fl_expected_launches(arch: str, update_dtype: str, rounds: int = 2,
                        for (R, L), n in multi.items() for j in range(4)},
         "scaled_accum": rounds * (1 if q else 2),
         "quant_accum": rounds if q else 0,
+        "quant_admit": rounds * {"f32": 0, "int8": 3,
+                                 "bf16": 1}[update_dtype],
         "trimmed_sumsq": 0, "flash_attention": 0, "ssd_intra_chunk": {}}
     cfg = get_arch(arch)
     if cfg.ssm is not None:
@@ -2398,6 +2405,270 @@ def kernel_checks(launches: dict, shapes: dict, quantile_calls: dict) -> list:
     return out
 
 
+ADMIT_M = 16           # the merge cell's cohort, for quant_admit's rows
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (a float's sign of zero and NaNs included)."""
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype in view:
+        a, b = a.view(view[a.dtype]), b.view(view[b.dtype])
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def admission_plain(fn):
+    """``fn()`` with every ``quant_admit`` step on the plain version, on the
+    card: the kernel's yardstick for the same tensors."""
+    import functools
+    from repro_torch.kernels.fedfa_agg import ops as agg_ops
+    orig = agg_ops.quant_admit
+    agg_ops.quant_admit = functools.partial(orig, use_kernel=False)
+    try:
+        return fn()
+    finally:
+        agg_ops.quant_admit = orig
+
+
+def admit_specs(cfg, m: int):
+    """A cohort of m clients of mixed width and depth (the "both" pool),
+    so that stage-0 rows graft."""
+    from repro_torch.core.server import make_client_specs
+    from repro_torch.launch import train
+    return make_client_specs(cfg, m, archs=train.client_arch_pool(cfg,
+                                                                  "both"),
+                             seed=0)
+
+
+def admit_state(index, m: int, dtype: str, gen, width=None):
+    """A residual state on the card: e_q drawn, e_s small, x_q and scales
+    noise that admission overwrites."""
+    from repro_torch.core import flat
+    want = flat.update_dtype_of(dtype)
+    w = index.n_padded if width is None else width
+    e = torch.randn((m, w), generator=gen, device="cuda")
+    e_q = (e * 40).round().clamp(-127, 127).to(want) if dtype == "int8" \
+        else (1e-3 * e).to(want)
+    del e
+    e_s = torch.rand((m, index.n_segments), generator=gen,
+                     device="cuda") * 1e-4
+    if dtype == "bf16":
+        e_s.fill_(1.0)
+    return (torch.randint(-9, 9, (m, w), generator=gen, device="cuda")
+            .to(want), torch.rand((m, index.n_segments), generator=gen,
+                                  device="cuda"), e_q, e_s)
+
+
+def admit_both(index, cfg, x, masks, gmaps, graft, state, dtype,
+               cols=None) -> tuple:
+    """``admit_quantized`` on the card through the kernel and through the
+    plain version from the same state -> (kernel's state, plain state); a
+    narrower ``cols`` without a mesh floors nothing (the all-reduce of the
+    maxima is left out)."""
+    from repro_torch.core import flat
+    got = tuple(t.clone() for t in state)
+    want = tuple(t.clone() for t in state)
+    orig = flat.coll.all_reduce
+    flat.coll.all_reduce = lambda t, *a, **kw: t
+    try:
+        flat.admit_quantized(index, cfg, x, masks, gmaps, graft, got, dtype,
+                             None, cols)
+        admission_plain(lambda: flat.admit_quantized(
+            index, cfg, x, masks, gmaps, graft, want, dtype, None, cols))
+    finally:
+        flat.coll.all_reduce = orig
+    torch.cuda.synchronize()
+    return got, want
+
+
+def quant_admit_checks(card: str) -> list:
+    """``quant_admit`` (``csrc/quant_admit.cu``) against its plain version
+    on the card, bit for bit: (a) whole admissions of the 4-layer smollm
+    layout at int8 and bf16, graft on and off, and a padded layout cut
+    inside the embedding's row and inside a stacked row (the scalar route);
+    (b) at the wrapper, the full-size embedding segment (28,311,552
+    elements a row, shared by thousands of blocks) and one full-size
+    stacked leaf (``w_gate``, 30 x 884,736, grafted) with random 0/1 masks
+    on both of its axes, and a piece cut 2 columns into the embedding's row;
+    (c) the wrapper refusing a wrong dtype, device and shape; (d) m = 16
+    admissions of full-size smollm-135m timed (each step, the three, the
+    whole call and the plain version, CUDA events) against the bound of
+    the bytes they need, the kernel's result bit-equal to the plain
+    version's there too.  Prints one JSON line; returns the kernel rows."""
+    from repro_torch.core import flat
+    from repro_torch.core.server import stack_runtimes
+    from repro_torch.kernels.fedfa_agg import ops as agg_ops
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+    out = {"card": card}
+    gen = torch.Generator("cuda").manual_seed(31)
+
+    # (a) the 4-layer layout
+    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=False)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    masks, _, gmaps, *_ = stack_runtimes(cfg, admit_specs(cfg, 4), "cuda")
+    check(bool((gmaps != torch.arange(gmaps.shape[1],
+                                      device="cuda")).any()),
+          "the admission cohort grafts no row")
+    for pad, graft, cut in ((1, True, False), (1, False, False),
+                            (4096, True, True)):
+        index = flat.FlatIndex(params, pad_to=pad)
+        x = torch.zeros((4, index.n_padded), device="cuda")
+        x[:, :index.n] = 0.05 * torch.randn((4, index.n), generator=gen,
+                                            device="cuda")
+        x[1] = 0.0
+        # client 2's final norm lands on halves after the division by its
+        # scale 127 / 127 (its residual scale is zeroed below)
+        fin = next(s for s in index.leaves if s.path[0] == "final_norm")
+        halves = torch.tensor([127.0, -127.0, 0.5, 1.5, 2.5, -0.5, -2.5,
+                               126.5, -126.5, 3.5, 0.0, 64.5], device="cuda")
+        x[2, fin.offset:fin.offset + fin.size] = halves.repeat(
+            -(-fin.size // 12))[:fin.size]
+        cols = None
+        if cut:
+            st = next(s for s in index.leaves if s.stacked and s.rest > 8)
+            cols = slice(1002, st.offset + 2 * st.rest + 6)
+        for dtype in ("int8", "bf16"):
+            w = None if cols is None else cols.stop - cols.start
+            state = admit_state(index, 4, dtype, gen, w)
+            state[3][1] = 0.0                   # an all-zero client
+            state[3][2, fin.seg0] = 0.0
+            got, want = admit_both(index, cfg, x, masks, gmaps, graft, state,
+                                   dtype, cols)
+            if dtype == "int8" and cols is None:
+                a = fin.offset
+                check(got[0][2, a:a + 12].tolist() == [
+                    127, -127, 0, 2, 2, 0, -2, 126, -126, 4, 0, 64],
+                    f"quant_admit rounds halves to {got[0][2, a:a + 12]}")
+            for name, g, wt in zip(("x_q", "scales", "e_q", "e_s"), got,
+                                   want):
+                check(same_bits(g, wt), f"quant_admit {dtype} (4-layer, pad "
+                      f"{pad}, graft {graft}, cut {cut}): {name} differs "
+                      f"from the plain version's")
+    out["small"] = "bit-equal: int8, bf16; graft on, off; cut columns"
+
+    # (b) full-size segments at the wrapper
+    m, E, R, L = 4, 49152 * 576, 30, 576 * 1536
+    F = 576 + 1536
+    AP = agg_ops.AdmitPiece
+    plan = agg_ops.AdmitPlan([
+        AP(0, 1, E, 0, 0, 1, E, 0, 0, False, False, (49152, 576),
+           ((0, 1, 576),)),
+        AP(1, R, L, E, E, R, L, 0, 0, True, True, (R, 576, 1536),
+           ((0, 1, 576), (576, 2, 1536))),
+        AP(31, 1, 1_000_003, E + R * L, 0, 1, E, 0, 2, False, False,
+           (49152, 576), ((0, 1, 576),))], F)
+    W, S = E + R * L + 1_000_004, 32
+    x = 0.05 * torch.randn((m, E + R * L), generator=gen, device="cuda")
+    fac = (torch.rand((m, F), generator=gen, device="cuda") > 0.3).float()
+    gm = torch.stack([torch.randperm(R, device="cuda") for _ in range(m)])
+    for dtype in ("int8", "bf16"):
+        want_t = flat.update_dtype_of(dtype)
+        e_q = (torch.randn((m, W), generator=gen, device="cuda") * 40) \
+            .round().clamp(-127, 127).to(want_t)
+        e_s = torch.rand((m, S), generator=gen, device="cuda") * 1e-4
+        res = []
+        for use_kernel in (None, False):
+            st = [torch.zeros((m, W), dtype=want_t, device="cuda"),
+                  e_q.clone(), torch.zeros((m, S), device="cuda"),
+                  torch.zeros((m, S), device="cuda")]
+            steps = (1, 2, 3) if dtype == "int8" else (3,)
+            for step in steps:
+                agg_ops.quant_admit(step, x, gm, True, fac, st[1], e_s, st[0],
+                                    st[2] if dtype == "int8" else None,
+                                    st[3] if dtype == "int8" else None, plan,
+                                    use_kernel=use_kernel)
+            res.append(st)
+        torch.cuda.synchronize()
+        for name, g, wt in zip(("x_q", "e_q", "y_max", "e_max"), *res):
+            check(same_bits(g, wt), f"quant_admit {dtype} at full-size "
+                  f"segments: {name} differs from the plain version's")
+        del res, e_q
+    out["full_size_segments"] = {
+        "embedding": [1, E], "w_gate": [R, L], "cut": [1, 1_000_003],
+        "m": m, "bits": "equal, int8 and bf16"}
+    # (c) refusals
+    st = torch.zeros((m, W), dtype=torch.int8, device="cuda")
+    tab = torch.zeros((m, S), device="cuda")
+    for what, call, err in (
+            ("f32 state", lambda: agg_ops.quant_admit(
+                1, x, gm, True, fac, st.float(), tab, st.float(), tab, tab,
+                plan), TypeError),
+            ("scales on the CPU", lambda: agg_ops.quant_admit(
+                1, x, gm, True, fac, st, tab.cpu(), st, tab, tab, plan),
+             ValueError),
+            ("a narrow state", lambda: agg_ops.quant_admit(
+                1, x, gm, True, fac, st[:, :W - 8].contiguous(), tab,
+                st[:, :W - 8].contiguous(), tab, tab, plan), ValueError),
+            ("fac of 3 rows", lambda: agg_ops.quant_admit(
+                1, x, gm, True, fac[:3].contiguous(), st, tab, st, tab, tab,
+                plan), ValueError)):
+        try:
+            call()
+        except err:
+            continue
+        raise AssertionError(f"quant_admit took {what}")
+    out["refuses"] = "f32 state, a CPU table, a narrow state, a short fac"
+    del x, fac, gm, st, tab
+    collect_garbage()
+    torch.cuda.empty_cache()
+
+    # (d) m = 16 admissions of full-size smollm-135m, timed
+    cfg = train.fl_config("smollm-135m", "cls", 10, full_size=True)
+    index = model_index()
+    masks, _, gmaps, *_ = stack_runtimes(cfg, admit_specs(cfg, ADMIT_M),
+                                         "cuda")
+    x = torch.stack([cohort_row(index, i) for i in range(ADMIT_M)])
+    rows = []
+    for dtype in ("int8", "bf16"):
+        state = admit_state(index, ADMIT_M, dtype, gen)
+        got, want = admit_both(index, cfg, x, masks, gmaps, True, state,
+                               dtype)
+        for name, g, wt in zip(("x_q", "scales", "e_q", "e_s"), got, want):
+            check(same_bits(g, wt), f"quant_admit {dtype} (m = {ADMIT_M}, "
+                  f"full size): {name} differs from the plain version's")
+        del want
+        fac, per_leaf = flat._admit_factors(cfg, index, masks, ADMIT_M,
+                                            "cuda")
+        plan = flat._admit_plan(index, slice(0, index.n_padded), per_leaf,
+                                fac.shape[1])
+        gm = gmaps.long()
+        x_q, scales, e_q, e_s = got
+        ymax, emax = (torch.zeros_like(scales) if dtype == "int8" else None
+                      for _ in range(2))
+        steps = (1, 2, 3) if dtype == "int8" else (3,)
+        step_ms = {}
+        for step in steps:
+            step_ms[step] = time_ms(lambda: agg_ops.quant_admit(
+                step, x, gm, True, fac, e_q, e_s, x_q, ymax, emax, plan), 5,
+                warmup=1)
+        admit = lambda st=got: flat.admit_quantized(
+            index, cfg, x, masks, gmaps, True, st, dtype)
+        call_ms = time_ms(admit, 5, warmup=1)
+        plain_ms = time_ms(lambda: admission_plain(admit), 2, warmup=1)
+        b = 1 if dtype == "int8" else 2
+        n = plan.n_elems
+        nbytes = (len(steps) * (4 + b) + 2 * b) * ADMIT_M * n
+        bms, by = bound(nbytes, 0)
+        rows.append({
+            "name": "quant_admit", "dtype": dtype, "route": "cuda",
+            "source": "src/repro_torch/csrc/quant_admit.cu",
+            "replaces": "none (the reference admits in plain jnp)",
+            "shape": [ADMIT_M, n], "pieces": len(plan.pieces),
+            "launches_per_admission": len(steps),
+            "step_ms": step_ms, "ms": sum(step_ms.values()),
+            "admission_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "bound_bytes": nbytes,
+            "library_ms": None})
+        del got, state, fac, x_q, scales, e_q, e_s
+        collect_garbage()
+    del x
+    collect_garbage()
+    torch.cuda.empty_cache()
+    out["rows"] = rows
+    print(json.dumps({"quant_admit": out}), flush=True)
+    return rows
+
+
 def hist_level_rows(x, s, q, dtype: str, by_shape: dict, total: dict,
                     per_round: float = None, **extra) -> list:
     """``hist_level`` on the rows x (R, L) (per-row scales ``s`` if
@@ -3319,7 +3590,8 @@ def _mesh_rank(rank: int, tmp: str) -> None:
                                         round_contract)
     from repro_torch.core.server import FLConfig, stack_runtimes
     from repro_torch.checkpoint import checkpoint as ckpt_mod
-    from repro_torch.kernels.fedfa_agg.ops import (QUANT_ACCUM, SCALED_ACCUM,
+    from repro_torch.kernels.fedfa_agg.ops import (QUANT_ACCUM, QUANT_ADMIT,
+                                                   SCALED_ACCUM,
                                                    accumulate_contract)
     from repro_torch.kernels.fedfa_quantile.multilevel import (
         HIST_LEVEL, distributed_quantile_contract)
@@ -3331,7 +3603,8 @@ def _mesh_rank(rank: int, tmp: str) -> None:
     from repro_torch.sharding import collectives as coll
     from repro_torch.sim import ParitySource
     from repro_torch.tree import tree_map
-    kernels = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL, QUANT_ACCUM]
+    kernels = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL, QUANT_ACCUM,
+               QUANT_ADMIT]
     mesh = get_mesh("2x2", "cuda")
     cfg = train.fl_config("smollm-135m", "cls", 10, full_size=True)
     index = model_index(pad_to=csh.pad_unit(mesh))
@@ -3774,9 +4047,15 @@ def mesh_path(kernels, card: str) -> tuple:
             aggq = {"scaled_accum": {(4, w): 1}, "quant_accum": {(4, w): 1},
                     "hist_level": hist}
             cc = agg_counts_expected(w, 4, S)
+            # the rank's 4 rows admitted over its columns (the inert tail
+            # left out): one launch a step
+            admit = {"quant_admit": {
+                (step, 4, min(cols.stop, index.n) - cols.start): 1
+                for step in (1, 2, 3)}}
             for key, want_l, want_c in (
                     ("aggregate_f32", agg, cc), ("aggregate_int8", aggq, cc),
-                    ("admit_int8", {}, {f"all_reduce_max model {4 * S}": 2})):
+                    ("admit_int8", admit,
+                     {f"all_reduce_max model {4 * S}": 2})):
                 got = o[key]
                 check(got["launches_by_shape"] == want_l,
                       f"rank {o['rank']} {key}: launches "
@@ -3795,7 +4074,7 @@ def mesh_path(kernels, card: str) -> tuple:
                                  "all_reduce data 2": 1,
                                  f"all_reduce_max model {4 * S}": 2})
             rep = o["async_int8"]
-            check(rep["launches_by_shape"] == aggq
+            check(rep["launches_by_shape"] == dict(aggq, **admit)
                   and rep["collectives"] == want_c,
                   f"rank {o['rank']} async merge: {rep['launches_by_shape']} "
                   f"{rep['collectives']}")
@@ -3825,8 +4104,9 @@ def fixture_launches() -> dict:
     layout (``analysis.programs``): the norms pass launches
     ``quantile_fused`` once a leaf whose rows fit one pass and
     ``hist_level`` once a level for each longer leaf; M' and Γ one
-    ``scaled_accum`` each (M' ``quant_accum`` at int8); the admissions
-    launch nothing; the quantile fixtures one ``quantile_fused`` each, or
+    ``scaled_accum`` each (M' ``quant_accum`` at int8); an int8 admission
+    ``quant_admit`` three times, an f32 one nothing; the quantile fixtures
+    one ``quantile_fused`` each, or
     four ``hist_level`` levels for the long row."""
     from repro_torch.analysis import programs
     from repro_torch.core import flat
@@ -3837,8 +4117,9 @@ def fixture_launches() -> dict:
              "hist_level": 4 * (len(index.leaves) - one)}
     agg = dict(norms, scaled_accum=2)
     want = {"round/ms1": agg, "agg/1dev": agg, "async/merge": agg,
-            "round/quant": dict(norms, scaled_accum=1, quant_accum=1),
-            "async/admit": {}, "async/admit-quant": {},
+            "round/quant": dict(norms, scaled_accum=1, quant_accum=1,
+                                quant_admit=3),
+            "async/admit": {}, "async/admit-quant": {"quant_admit": 3},
             "quantile/fused": {"quantile_fused": 1}, "quantile/topk": {},
             "quantile/fused-pad": {"quantile_fused": 1},
             "quantile/topk-pad": {}, "quantile/multilevel": {"hist_level": 4}}
@@ -3943,7 +4224,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import MAMBA2_130M, SMOLLM_135M
     from repro_torch.kernels import build
-    from repro_torch.kernels.fedfa_agg.ops import (QUANT_ACCUM, SCALED_ACCUM,
+    from repro_torch.kernels.fedfa_agg.ops import (QUANT_ACCUM, QUANT_ADMIT,
+                                                   SCALED_ACCUM,
                                                    TRIMMED_SUMSQ)
     from repro_torch.kernels.fedfa_quantile.multilevel import HIST_LEVEL
     from repro_torch.kernels.fedfa_quantile.ops import QUANTILE_FUSED
@@ -3963,7 +4245,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     kernels = [SCALED_ACCUM, QUANTILE_FUSED, HIST_LEVEL, QUANT_ACCUM,
-               TRIMMED_SUMSQ, SSD_INTRA_CHUNK, FLASH_ATTENTION]
+               TRIMMED_SUMSQ, SSD_INTRA_CHUNK, FLASH_ATTENTION, QUANT_ADMIT]
     t0 = time.perf_counter()
     build.build_all(kernels)
     log(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.1f} s")
@@ -3971,6 +4253,7 @@ def main() -> int:
         log(k.library.with_suffix(".log").read_text().strip()
             if k.library.with_suffix(".log").exists() else k.library.name)
 
+    admit_rows = quant_admit_checks(card)
     small_reference_check()
     for dtype in ("int8", "bf16"):
         small_quantized_check(dtype)
@@ -3993,7 +4276,7 @@ def main() -> int:
     full_width = []     # the analysis phase's full-width contracts
     for dtype in ("f32", "int8", "bf16"):
         hist = main_path(kernels, dtype, f32_path if dtype == "f32"
-                         else f32_path + [QUANT_ACCUM],
+                         else f32_path + [QUANT_ACCUM, QUANT_ADMIT],
                          contracts=full_width if dtype != "bf16" else None)
         check_fl_launches(hist, "smollm-135m", dtype)
         launches[dtype] = hist["launches"]
@@ -4011,7 +4294,8 @@ def main() -> int:
     fl_rows = []
     for dtype in ("f32", "int8"):
         hist = main_path(kernels, dtype, f32_path if dtype == "f32"
-                         else f32_path + [QUANT_ACCUM], arch="mamba2-130m",
+                         else f32_path + [QUANT_ACCUM, QUANT_ADMIT],
+                         arch="mamba2-130m",
                          record_all=True)
         check_fl_launches(hist, "mamba2-130m", dtype)
         print(json.dumps({"fl_path": {"arch": "mamba2-130m",
@@ -4029,7 +4313,8 @@ def main() -> int:
     # no hist_level), and its kernels on the rows it passed them
     for dtype in ("f32", "int8"):
         hist = main_path(kernels, dtype, [SCALED_ACCUM, QUANTILE_FUSED]
-                         + ([QUANT_ACCUM] if dtype == "int8" else []),
+                         + ([QUANT_ACCUM, QUANT_ADMIT] if dtype == "int8"
+                            else []),
                          arch=PHI, record_all=True, full_size=False)
         check_fl_launches(hist, PHI, dtype, full_size=False)
         print(json.dumps({"fl_path": {"arch": PHI, "cut": "4 layers",
@@ -4049,7 +4334,8 @@ def main() -> int:
     # and its aggregation timed
     for dtype in ("f32", "int8"):
         hist = main_path(kernels, dtype, [SCALED_ACCUM, QUANTILE_FUSED]
-                         + ([QUANT_ACCUM] if dtype == "int8" else []),
+                         + ([QUANT_ACCUM, QUANT_ADMIT] if dtype == "int8"
+                            else []),
                          arch=RG, record_all=True, full_size=False)
         check_fl_launches(hist, RG, dtype, full_size=False)
         print(json.dumps({"fl_path": {"arch": RG, "cut": "4 layers",
@@ -4159,8 +4445,10 @@ def main() -> int:
     # the program contracts: the fixture programs on the card, then the
     # full-width and mesh contracts recorded above
     analysis_phase(kernels, card, full_width, mesh_contracts)
+    for row in admit_rows:      # the main path's launches of its 2 rounds
+        row["launches"] = launches[row["dtype"]]["quant_admit"]
     print(json.dumps({"kernels": kernel_checks(launches, shapes,
-                                               quantile_calls)
+                                               quantile_calls) + admit_rows
                       + hist_checks(launches, shapes) + fl_rows + ssd_checks(
         launches["mamba2-130m@1024"]["ssd_intra_chunk"]) + flash_checks(
         launches["smollm-135m@4096"]["flash_attention"]) + [phi_row]

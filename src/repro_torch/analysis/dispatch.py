@@ -228,8 +228,8 @@ class Recorder(TorchDispatchMode):
 
     # -- kernels -----------------------------------------------------------
 
-    def _scope(self, name: str, inputs):
-        return _Scope(self, name, inputs)
+    def _scope(self, name: str, inputs, writes=()):
+        return _Scope(self, name, inputs, writes)
 
     # -- storages ----------------------------------------------------------
 
@@ -313,11 +313,12 @@ def _op_info(func) -> _OpInfo:
 
 class _Scope:
     """A kernel call inside a recording: one read at its call site if an
-    input is row-sized, nothing inside counted, its transients not
-    charged."""
+    input is row-sized, the tensors it writes in place marked written,
+    nothing inside counted, its transients not charged."""
 
-    def __init__(self, rec: Recorder, name: str, inputs):
+    def __init__(self, rec: Recorder, name: str, inputs, writes=()):
         self.rec, self.name, self.inputs = rec, name, inputs
+        self.writes = writes
 
     def __enter__(self):
         rec = self.rec
@@ -327,6 +328,8 @@ class _Scope:
                 and rec._rowsized(
                 [t for t in self.inputs if isinstance(t, torch.Tensor)]):
             rec._read(self.name)
+        if rec._scope_depth == 0:
+            rec._mark(self.writes)
         rec._scope_depth += 1
         if rec._live is not None:
             rec._live.open_scope()

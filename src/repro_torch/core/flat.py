@@ -40,6 +40,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.masking import (active_fraction, axis_mask_tree,
                                       mask_density)
 from repro_torch.kernels.fedfa_agg import ops as agg_ops
+from repro_torch.kernels.fedfa_agg import ref as agg_ref
 from repro_torch.kernels.fedfa_quantile import multilevel as quant_ml
 from repro_torch.kernels.fedfa_quantile import ops as quant_ops
 from repro_torch.models.masks import WidthMasks
@@ -330,30 +331,6 @@ def _inert_columns(index: FlatIndex, device) -> Optional[torch.Tensor]:
     return torch.as_tensor(inert, device=device) if inert.any() else None
 
 
-def _quantize_rows(y: torch.Tensor, update_dtype: str,
-                   floor: Optional[torch.Tensor] = None):
-    """One leaf's (m, lead, rest) f32 rows in the admission dtype, with
-    (m, lead) scales: int8 takes max|y|/127 per row (scale 0 on all-zero
-    rows, which quantize to zeros); bf16 and f32 carry scale 1.  ``floor``
-    (m, lead) raises each row's max|y| to at least that much (a row whose
-    other columns lie on other model shards)."""
-    ones = lambda: torch.ones(y.shape[:2], dtype=torch.float32,
-                              device=y.device)
-    if update_dtype == "f32":
-        return y, ones()
-    if update_dtype == "bf16":
-        return y.to(torch.bfloat16), ones()
-    seg_max = torch.amax(torch.abs(y), dim=2)
-    if floor is not None:
-        seg_max = torch.maximum(seg_max, floor)
-    # true f32 divisions and round-half-to-even, as the reference writes
-    # them (max is exact, so a per-row amax gives the reference's scatter-max)
-    scales = seg_max / 127.0
-    safe = torch.where(seg_max > 0, scales, 1.0)
-    q = torch.clamp(torch.round(y / safe[..., None]), -127.0, 127.0)
-    return q.to(torch.int8), scales
-
-
 def _dequantize_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """f32 (m, lead, rest) of one leaf's quantized rows and (m, lead)
     scales."""
@@ -381,7 +358,8 @@ def quantize_cohort(index: FlatIndex, x: torch.Tensor, update_dtype: str):
     scales = torch.empty((m, index.n_segments), dtype=torch.float32,
                          device=x.device)
     for spec in index.leaves:
-        q, s = _quantize_rows(_leaf_rows(x, spec), update_dtype)
+        y = _leaf_rows(x, spec)
+        q, s = agg_ref.int8_rows(y, torch.amax(torch.abs(y), dim=2))
         _leaf_rows(x_q, spec).copy_(q)
         scales[:, spec.seg0:spec.seg0 + spec.lead] = s
     inert = _inert_columns(index, x.device)
@@ -406,6 +384,60 @@ def dequantize_cohort(index: FlatIndex, x_q: torch.Tensor,
     return out
 
 
+def _admit_factors(cfg: ArchConfig, index: FlatIndex, masks: WidthMasks,
+                   m: int, device):
+    """The cohort's width-mask vectors as one (m, F) f32 factor table (each
+    vector once, at a column that is a multiple of 4, zero-padded to one)
+    and, per leaf, the (column, leaf axis, length) of each vector whose
+    product along the leaf's axes is its density (``mask_density``'s
+    factors, in its order)."""
+    axs = [dict(leaves_with_path(axis_mask_tree(cfg, masks.client(c))))
+           for c in range(m)]
+    at, parts, per_leaf, width = {}, [], [], 0
+    for spec in index.leaves:
+        ms, factors = axs[0][spec.path].ms, []
+        for i, mv in enumerate(ms):
+            if mv is None:
+                continue
+            vs = [axs[c][spec.path].ms[i] for c in range(m)]
+            key = tuple(map(id, vs))
+            if key not in at:
+                dim = mv.shape[0]
+                at[key] = width
+                parts.append(torch.stack(vs).to(device))
+                if dim % 4:
+                    parts.append(torch.zeros((m, -dim % 4), device=device))
+                width += dim + -dim % 4
+            factors.append((at[key], len(spec.shape) - len(ms) + i,
+                            mv.shape[0]))
+        per_leaf.append(tuple(factors))
+    fac = torch.cat(parts, 1) if parts else \
+        torch.zeros((m, 0), device=device)
+    return fac, tuple(per_leaf)
+
+
+def _admit_plan(index: FlatIndex, cols: slice, per_leaf,
+                n_factor_cols: int) -> agg_ops.AdmitPlan:
+    """The admission's pieces (``_pieces`` of ``cols``) with their leaves'
+    layout and density factors, memoized on the index."""
+    memo = index.__dict__.setdefault("_admit_plans", {})
+    key = (cols.start, cols.stop, per_leaf, n_factor_cols)
+    if key not in memo:
+        seg0s = [spec.seg0 for spec in index.leaves]
+        pieces = []
+        for s0, k, rest, a, _ in _pieces(index, cols):
+            li = bisect.bisect_right(seg0s, s0) - 1
+            spec = index.leaves[li]
+            j = s0 - spec.seg0
+            pieces.append(agg_ops.AdmitPiece(
+                s0, k, rest, a, spec.offset, spec.lead, spec.rest, j,
+                cols.start + a - spec.offset - j * spec.rest, spec.stacked,
+                spec.stacked and spec.stage == 0, spec.shape,
+                per_leaf[li]))
+        memo[key] = agg_ops.AdmitPlan(pieces, n_factor_cols)
+    return memo[key]
+
+
 def admit_quantized(index: FlatIndex, cfg: ArchConfig, x: torch.Tensor,
                     masks: WidthMasks, gmaps: torch.Tensor, graft: bool,
                     state, update_dtype: str, mesh=None,
@@ -415,10 +447,13 @@ def admit_quantized(index: FlatIndex, cfg: ArchConfig, x: torch.Tensor,
     f32 cohort x (m, n_padded) if ``graft``; y = (x + dequantize(e,
     e_s))·dens; (x_q, scales) = quantize(y); e' = y − dequantize(x_q,
     scales); (e, e_s) = quantize(e').  ``state`` = (x_q, scales, e, e_s) is
-    updated in place.  The columns go piece by piece (``_pieces``: whole
-    leaves where no edge cuts them), each done whole before the next, so
-    no (m, N) f32 transient exists: the per-element arithmetic, and so
-    every bit, is that of the whole-buffer reference.
+    updated in place.  int8 and bf16 go through ``agg_ops.quant_admit``
+    (the kernel on the card, its plain version on the CPU): three streaming
+    steps over every piece (``_pieces``: whole leaves where no edge cuts
+    them) at int8 — y's maxima, the residual's maxima, then the writes —
+    and the last alone at bf16, so no (m, N) f32 transient exists: the
+    per-element arithmetic, and so every bit, is that of the whole-buffer
+    reference.  f32 goes piece by piece through the plain version's rows.
 
     ``cols`` (a rank's P("model") columns, with ``mesh``; all by default):
     the state holds only those columns, while x is still whole rows.  The
@@ -430,69 +465,40 @@ def admit_quantized(index: FlatIndex, cfg: ArchConfig, x: torch.Tensor,
         x_q, scales, e_q, e_s = state
         cols = cols or slice(0, index.n_padded)
         m = x.shape[0]
-        seg0s = [spec.seg0 for spec in index.leaves]
-        axs = [dict(leaves_with_path(axis_mask_tree(cfg, masks.client(c))))
-               for c in range(m)]
-        rows = torch.arange(m, device=x.device)[:, None]
-        dens_of = {}
-
-        def y_of(p):
-            """y = (x + dequantize(e))·dens on the piece, as (m, k, rest)."""
-            s0, k, rest, a, _ = p
-            li = bisect.bisect_right(seg0s, s0) - 1
-            spec = index.leaves[li]
-            j = s0 - spec.seg0
-            c = cols.start + a - spec.offset - j * spec.rest   # within the row
-            xl = _leaf_rows(x, spec)
-            xl = xl[rows, gmaps[:, j:j + k]] if (graft and spec.stacked
-                                                 and spec.stage == 0) \
-                else xl[:, j:j + k]
-            y = xl[..., c:c + rest] + _dequantize_rows(_piece_rows(e_q, p),
-                                                       e_s[:, s0:s0 + k])
-            if li not in dens_of:
-                dens_of.clear()
-                dens_of[li] = torch.stack([mask_density(spec.shape,
-                                                        axs[i][spec.path])
-                                           for i in range(m)]).to(x.device)
-            dens = dens_of[li]
-            if (k, rest) == (spec.lead, spec.rest):          # the whole leaf
-                return (y.view((m,) + spec.shape) * dens).view(y.shape)
-            return y * torch.broadcast_to(dens, (m,) + spec.shape).reshape(
-                m, spec.lead, spec.rest)[:, j:j + k, c:c + rest]
-
-        pieces = _pieces(index, cols)
-        y_max = e_max = None
-        if update_dtype == "int8" and cols != slice(0, index.n_padded):
+        fac, per_leaf = _admit_factors(cfg, index, masks, m, x.device)
+        plan = _admit_plan(index, cols, per_leaf, fac.shape[1])
+        gmaps = gmaps.to(device=x.device, dtype=torch.int64).contiguous()
+        fused = update_dtype != "f32"
+        tracing.count("admit_pieces_fused", len(plan.pieces) if fused else 0)
+        tracing.count("admit_pieces_plain", 0 if fused else len(plan.pieces))
+        if update_dtype == "int8":
             y_max = torch.zeros((m, index.n_segments), device=x.device)
             e_max = torch.zeros_like(y_max)
-            for p in pieces:
-                y_max[:, p[0]:p[0] + p[1]] = torch.amax(torch.abs(y_of(p)),
-                                                        dim=2)
-            coll.all_reduce(y_max, mesh, csh.MODEL_AXIS, op="max")
-            for p in pieces:
-                y = y_of(p)
-                q, s = _quantize_rows(y, update_dtype,
-                                      y_max[:, p[0]:p[0] + p[1]])
-                e_max[:, p[0]:p[0] + p[1]] = torch.amax(
-                    torch.abs(y - _dequantize_rows(q, s)), dim=2)
-            coll.all_reduce(e_max, mesh, csh.MODEL_AXIS, op="max")
-        for p in pieces:
-            segs = slice(p[0], p[0] + p[1])
-            y = y_of(p)
-            q, s = _quantize_rows(y, update_dtype,
-                                  None if y_max is None else y_max[:, segs])
-            e = y - _dequantize_rows(q, s)
-            eq, es = _quantize_rows(e, update_dtype,
-                                    None if e_max is None else e_max[:, segs])
-            _piece_rows(x_q, p).copy_(q)
-            scales[:, segs] = s
-            _piece_rows(e_q, p).copy_(eq)
-            e_s[:, segs] = es
-        if y_max is not None:
-            # the scales _quantize_rows takes from these maxima, for the
-            # segments with no column here too (y_of has read the old e_s)
+            sharded = cols != slice(0, index.n_padded)
+            args = (x, gmaps, graft, fac, e_q, e_s, x_q, y_max, e_max, plan)
+            agg_ops.quant_admit(1, *args)
+            if sharded:
+                coll.all_reduce(y_max, mesh, csh.MODEL_AXIS, op="max")
+            agg_ops.quant_admit(2, *args)
+            if sharded:
+                coll.all_reduce(e_max, mesh, csh.MODEL_AXIS, op="max")
+            agg_ops.quant_admit(3, *args)
+            # every segment's scales, those with no column here too (step
+            # 3 has read the old e_s)
             scales.copy_(y_max / 127.0)
             e_s.copy_(e_max / 127.0)
+            return
+        if fused:
+            agg_ops.quant_admit(3, x, gmaps, graft, fac, e_q, e_s, x_q, None,
+                                None, plan)
+        else:
+            for p in plan.pieces:
+                y = agg_ref.admit_rows(x, gmaps, fac, e_q, e_s, p, graft)
+                piece = slice(p.a, p.a + p.k * p.rest)
+                x_q[:, piece] = y.view(m, -1)
+                e_q[:, piece] = (y - y).view(m, -1)
+        scales[:, plan.segments] = 1.0
+        e_s[:, plan.segments] = 1.0
 
 
 def _device_seg_id(index: FlatIndex, device) -> torch.Tensor:

@@ -103,21 +103,22 @@ class CudaKernel:
 
 
 # contexts a recorder (``analysis.dispatch.Recorder``) pushes while it
-# runs: each is called as hook(name, inputs) and gives the context a kernel
-# call runs in
+# runs: each is called as hook(name, inputs, writes) and gives the context
+# a kernel call runs in
 SCOPE_HOOKS: list = []
 
 
 @contextlib.contextmanager
-def kernel_scope(name: str, *inputs):
+def kernel_scope(name: str, *inputs, writes=()):
     """The context in which every wrapper runs its kernel's launch and its
     plain version: nothing outside a recording, and inside one a single
     read of ``inputs`` whose ops are not counted (the reference's
-    ``pallas_call`` rule), so that both routes count alike."""
+    ``pallas_call`` rule), so that both routes count alike.  ``writes``:
+    the tensors the kernel writes in place, recorded as written."""
     if not SCOPE_HOOKS:
         yield
         return
-    with SCOPE_HOOKS[-1](name, inputs):
+    with SCOPE_HOOKS[-1](name, inputs, writes):
         yield
 
 

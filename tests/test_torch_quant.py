@@ -40,6 +40,7 @@ from repro_torch.core.round import (ResidentDriver, fresh_quant_state,
                                     quant_state_from_numpy)
 from repro_torch.core.server import FLConfig
 from repro_torch.kernels.fedfa_agg import ops as agg_ops
+from repro_torch.kernels.fedfa_agg import ref as agg_ref
 from repro_torch.kernels.fedfa_quantile import multilevel, ops
 from repro_torch.launch import train
 from repro_torch.models.masks import ClientArch, stack_masks
@@ -373,6 +374,324 @@ def test_admission_chain_matches_reference(dt, graft):
                          graft, state, dt)
     for got, ref in zip(state, want):
         np.testing.assert_array_equal(_bits(got), _bits(np.asarray(ref)))
+
+
+# ---------------------------------------------------------------------------
+# the fused admission (agg_ops.quant_admit) against the piece loop it
+# replaced, kept here frozen as the yardstick
+# ---------------------------------------------------------------------------
+
+def _frozen_quantize_rows(y, update_dtype, floor=None):
+    ones = lambda: torch.ones(y.shape[:2], dtype=torch.float32,
+                              device=y.device)
+    if update_dtype == "f32":
+        return y, ones()
+    if update_dtype == "bf16":
+        return y.to(torch.bfloat16), ones()
+    seg_max = torch.amax(torch.abs(y), dim=2)
+    if floor is not None:
+        seg_max = torch.maximum(seg_max, floor)
+    scales = seg_max / 127.0
+    safe = torch.where(seg_max > 0, scales, 1.0)
+    q = torch.clamp(torch.round(y / safe[..., None]), -127.0, 127.0)
+    return q.to(torch.int8), scales
+
+
+def _frozen_deq(q, scales):
+    return q.to(torch.float32) * scales[..., None]
+
+
+def _frozen_admit(index, cfg, x, masks, gmaps, graft, state, update_dtype,
+                  all_reduce, cols=None):
+    """``flat.admit_quantized`` as it was before the fused kernel: the
+    per-piece chain of elementwise ops (``all_reduce(table)`` stands for
+    the all-reduce of the maxima over ``model``)."""
+    import bisect
+    from repro_torch.core.masking import axis_mask_tree, mask_density
+    from repro_torch.tree import leaves_with_path
+    x_q, scales, e_q, e_s = state
+    cols = cols or slice(0, index.n_padded)
+    m = x.shape[0]
+    seg0s = [spec.seg0 for spec in index.leaves]
+    axs = [dict(leaves_with_path(axis_mask_tree(cfg, masks.client(c))))
+           for c in range(m)]
+    rows = torch.arange(m, device=x.device)[:, None]
+    dens_of = {}
+
+    def y_of(p):
+        s0, k, rest, a, _ = p
+        li = bisect.bisect_right(seg0s, s0) - 1
+        spec = index.leaves[li]
+        j = s0 - spec.seg0
+        c = cols.start + a - spec.offset - j * spec.rest
+        xl = flat._leaf_rows(x, spec)
+        xl = xl[rows, gmaps[:, j:j + k]] if (graft and spec.stacked
+                                             and spec.stage == 0) \
+            else xl[:, j:j + k]
+        y = xl[..., c:c + rest] + _frozen_deq(flat._piece_rows(e_q, p),
+                                              e_s[:, s0:s0 + k])
+        if li not in dens_of:
+            dens_of.clear()
+            dens_of[li] = torch.stack([mask_density(spec.shape,
+                                                    axs[i][spec.path])
+                                       for i in range(m)]).to(x.device)
+        dens = dens_of[li]
+        if (k, rest) == (spec.lead, spec.rest):
+            return (y.view((m,) + spec.shape) * dens).view(y.shape)
+        return y * torch.broadcast_to(dens, (m,) + spec.shape).reshape(
+            m, spec.lead, spec.rest)[:, j:j + k, c:c + rest]
+
+    pieces = flat._pieces(index, cols)
+    y_max = e_max = None
+    if update_dtype == "int8" and cols != slice(0, index.n_padded):
+        y_max = torch.zeros((m, index.n_segments), device=x.device)
+        e_max = torch.zeros_like(y_max)
+        for p in pieces:
+            y_max[:, p[0]:p[0] + p[1]] = torch.amax(torch.abs(y_of(p)), dim=2)
+        all_reduce(y_max)
+        for p in pieces:
+            y = y_of(p)
+            q, s = _frozen_quantize_rows(y, update_dtype,
+                                         y_max[:, p[0]:p[0] + p[1]])
+            e_max[:, p[0]:p[0] + p[1]] = torch.amax(
+                torch.abs(y - _frozen_deq(q, s)), dim=2)
+        all_reduce(e_max)
+    for p in pieces:
+        segs = slice(p[0], p[0] + p[1])
+        y = y_of(p)
+        q, s = _frozen_quantize_rows(y, update_dtype,
+                                     None if y_max is None else y_max[:, segs])
+        e = y - _frozen_deq(q, s)
+        eq, es = _frozen_quantize_rows(e, update_dtype,
+                                       None if e_max is None else e_max[:, segs])
+        flat._piece_rows(x_q, p).copy_(q)
+        scales[:, segs] = s
+        flat._piece_rows(e_q, p).copy_(eq)
+        e_s[:, segs] = es
+    if y_max is not None:
+        scales.copy_(y_max / 127.0)
+        e_s.copy_(e_max / 127.0)
+
+
+def _admit_case(dt, case):
+    """(index, x, masks, gmaps, graft, state, cols) of one fused-admission
+    case: the 4-layer fixture with an all-zero client and segment, a
+    segment whose y lands on halves after the division, a residual state
+    on every other segment; the layout padded (an inert tail); "cut":
+    columns from inside the embedding's row to inside a stacked row,
+    "tail": from inside a stacked row into the inert tail."""
+    params = params_from_numpy(jax.tree.map(np.asarray, JPARAMS), CFG, "cpu")
+    index = flat.FlatIndex(params, pad_to=4096)
+    rng = np.random.default_rng(7)
+    m = 3
+    x = np.zeros((m, index.n_padded), np.float32)
+    x[:, :index.n] = _cohort(3, m)
+    x[:, index.n:] = 9.0            # nothing admits the inert tail
+    # client 2's final norm: y = x exactly, halves after the division by
+    # the scale 127 / 127 = 1
+    fin = next(s for s in index.leaves if s.path[0] == "final_norm")
+    halves = np.array([127.0, -127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5,
+                       -126.5, 3.5, 0.0, 64.5], np.float32)
+    x[2, fin.offset:fin.offset + fin.size] = np.resize(halves, fin.size)
+    stacked = next(s for s in index.leaves if s.stacked and s.rest > 8)
+    cols = {"cut": slice(1002, stacked.offset + 2 * stacked.rest + 6),
+            "tail": slice(stacked.offset + stacked.rest + 4,
+                          index.n_padded - 64)}.get(
+        case, slice(0, index.n_padded))
+    assert index.leaves[0].size > 1002 and index.n < index.n_padded - 64
+    want = flat.update_dtype_of(dt)
+    w = cols.stop - cols.start
+    S = index.n_segments
+    e = torch.from_numpy(rng.normal(size=(m, w)).astype(np.float32))
+    e_q = (e * 40).round().clamp(-127, 127).to(want) if dt == "int8" \
+        else (1e-3 * e).to(want)
+    e_s = torch.from_numpy(rng.uniform(1e-5, 1e-4, (m, S)).astype(np.float32))
+    e_s[1] = 0.0                    # client 1: x zero, so y zero
+    e_s[2, fin.seg0] = 0.0          # the halves segment: y = x
+    if dt == "bf16":
+        e_s[0] = 1.0
+    x_q = torch.from_numpy(rng.integers(-9, 9, (m, w))).to(want)
+    scales = torch.from_numpy(rng.uniform(0, 1, (m, S)).astype(np.float32))
+    masks, _, gmaps = _runtimes(ARCHS, port=True)
+    state = (x_q, scales, e_q, e_s)
+    return index, torch.from_numpy(x), masks, gmaps, case != "nograft", \
+        state, cols
+
+
+ADMIT_CASES = ["graft", "nograft", "cut", "tail"]
+
+
+@pytest.mark.parametrize("dt", QDTYPES)
+@pytest.mark.parametrize("case", ADMIT_CASES)
+def test_fused_admission_matches_piece_loop(dt, case):
+    """The new ``admit_quantized`` (the kernel's plain version on the CPU)
+    bit for bit against the piece loop it replaced: int8 and bf16, graft
+    on and off, an all-zero client and segment (scale 0), halves rounded
+    to even, the inert tail left alone, and columns cut inside rows whose
+    maxima are floored by the other shards' (``all_reduce`` stands in
+    with a fixed table of theirs)."""
+    index, x, masks, gmaps, graft, state, cols = _admit_case(dt, case)
+    rng = np.random.default_rng(11)
+    others = [torch.from_numpy(rng.uniform(0, 0.2, state[1].shape)
+                               .astype(np.float32)) for _ in range(2)]
+    calls = []
+
+    def floor(t):
+        t.copy_(torch.maximum(t, others[len(calls) % 2]))
+        calls.append(1)
+
+    want = tuple(t.clone() for t in state)
+    _frozen_admit(index, CFG, x, masks, gmaps, graft, want, dt, floor, cols)
+    got = tuple(t.clone() for t in state)
+    orig = flat.coll.all_reduce
+    mesh = object() if cols.stop - cols.start < index.n_padded else None
+    flat.coll.all_reduce = lambda t, mesh, axis, op="sum": floor(t)
+    try:
+        flat.admit_quantized(index, CFG, x, masks, gmaps, graft, got, dt,
+                             mesh, cols)
+    finally:
+        flat.coll.all_reduce = orig
+    assert len(calls) == (4 if dt == "int8" and mesh else 0)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+    if dt == "int8":
+        fin = next(s for s in index.leaves if s.path[0] == "final_norm")
+        if cols.start <= fin.offset:
+            a = fin.offset - cols.start
+            q = got[0][2, a:a + 12].tolist()
+            assert q == [127, -127, 0, 2, 2, 0, -2, 126, -126, 4, 0, 64]
+        assert not bool(torch.any(got[0][1, :min(cols.stop, index.n)
+                                         - cols.start]))   # all-zero client
+        if mesh is None:
+            assert float(got[1][1].abs().max()) == 0.0       # scale 0
+
+
+def _emulate_kernel_y(plan, x, gmaps, graft, fac, e_q, e_s):
+    """y as the kernel addresses it, from the plan's tables alone (numpy):
+    the tile rows, the x column (the graft's row gather), the state column,
+    the segment and each factor's index by the tables' divisors, the
+    products rounded in f32 in the kernel's order.  -> the (m, W) y."""
+    table, tiles = plan._build()
+    m = x.shape[0]
+    W = e_q.shape[1]
+    xs, gm, fc = x.numpy(), gmaps.numpy(), fac.numpy()
+    eq = e_q.to(torch.float32).numpy()
+    es = e_s.numpy()
+    y = np.full((m, W), np.nan, np.float32)
+    div = lambda n, mul, sh: ((n * mul >> 32) + n) >> sh
+    for pi, u, t0, ln in tiles.tolist():
+        P = table[pi]
+        rest, a, xoff, rowlen, j0, c0 = (int(v) for v in P[1:7])
+        j, s = j0 + u, int(P[0]) + u
+        t = np.arange(t0, t0 + ln, dtype=np.int64)
+        col = c0 + t
+        for c in range(m):
+            src = gm[c, j] if (graft and P[7]) else j
+            q = a + u * rest + t
+            assert np.isnan(y[c, q]).all()           # each element once
+            v = (xs[c, xoff + src * rowlen + col]
+                 + (eq[c, q] * es[c, s]).astype(np.float32)) \
+                .astype(np.float32)
+            d = None
+            for k in range(int(P[9])):
+                F = P[10 + 7 * k:17 + 7 * k]
+                qq = div(col, int(F[1]), int(F[2]))
+                idx = qq - div(qq, int(F[4]), int(F[5])) * int(F[6])
+                f = fc[c, int(F[0]) + idx]
+                d = f if d is None else (d * f).astype(np.float32)
+            y[c, q] = v if d is None else (v * d).astype(np.float32)
+    return y
+
+
+def test_admission_plan_tables_address_what_the_twin_reads():
+    """The kernel's piece and tile tables, read as the kernel reads them
+    (``_emulate_kernel_y``), cover every admitted element once and give
+    the y the plain version computes, bit for bit, on the padded cut
+    layout and the whole one; the divisors divide."""
+    for d in (1, 2, 3, 4, 64, 192, 576, 1536, 49152, (1 << 31) - 1):
+        mul, sh, _ = agg_ops._divider(d)
+        n = np.array([0, 1, d - 1, d, d + 1, 3 * d + 5, (1 << 31) - 1],
+                     np.int64)
+        assert mul < 1 << 32
+        assert (((n * mul >> 32) + n) >> sh).tolist() == (n // d).tolist()
+    for case in ("graft", "cut", "tail"):
+        index, x, masks, gmaps, graft, state, cols = _admit_case("int8", case)
+        fac, per_leaf = flat._admit_factors(CFG, index, masks, 3, "cpu")
+        plan = flat._admit_plan(index, cols, per_leaf, fac.shape[1])
+        assert fac.shape[1] % 4 == 0
+        got = _emulate_kernel_y(plan, x, gmaps, graft, fac, state[2],
+                                state[3])
+        want = np.full_like(got, np.nan)
+        for p in plan.pieces:
+            want[:, p.a:p.a + p.k * p.rest] = agg_ref.admit_rows(
+                x, gmaps, fac, state[2], state[3], p, graft) \
+                .reshape(3, -1).numpy()
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+        assert np.isnan(got).sum() == 3 * (state[0].shape[1] - plan.n_elems)
+        assert plan.n_elems == min(cols.stop, index.n) - cols.start
+
+
+@pytest.mark.parametrize("dt", ["int8", "bf16", "f32"])
+def test_admission_counts_its_pieces(dt):
+    """A recorded admission counts its pieces under ``admit``: every one
+    fused at int8 and bf16 (the kernel's route, its plain version on the
+    CPU), every one plain at f32; int8 takes three steps, bf16 one."""
+    from repro_torch import tracing
+    index = _index()
+    masks, _, gmaps = _runtimes(ARCHS, port=True)
+    state = fresh_quant_state(index, 3, dt, "cpu")
+    n = len(flat._pieces(index, slice(0, index.n_padded)))
+    assert n == len(index.leaves)
+    calls = []
+    orig = agg_ops.ref.quant_admit_ref
+    agg_ops.ref.quant_admit_ref = lambda step, *a: (calls.append(step),
+                                                    orig(step, *a))
+    rec = tracing.start("cpu")
+    try:
+        flat.admit_quantized(index, CFG, torch.from_numpy(_cohort(4)), masks,
+                             gmaps, True, state, dt)
+    finally:
+        tracing.stop()
+        agg_ops.ref.quant_admit_ref = orig
+    fused = dt != "f32"
+    assert rec.tree()["admit"]["counts"] == {
+        "admit_pieces_fused": n if fused else 0,
+        "admit_pieces_plain": 0 if fused else n}
+    assert calls == {"int8": [1, 2, 3], "bf16": [3], "f32": []}[dt]
+
+
+def test_quant_admit_checks_its_inputs():
+    """The wrapper refuses what the kernel would not take, on every
+    device: a wrong state dtype or step, an f32 x of another dtype, a
+    state narrower than the plan, a tensor on another device."""
+    index, x, masks, gmaps, graft, state, cols = _admit_case("int8", "graft")
+    fac, per_leaf = flat._admit_factors(CFG, index, masks, 3, "cpu")
+    plan = flat._admit_plan(index, cols, per_leaf, fac.shape[1])
+    x_q, scales, e_q, e_s = state
+    g = gmaps.long()
+    ymax = torch.zeros_like(scales)
+    ok = (x, g, True, fac, e_q, e_s, x_q, ymax, ymax.clone(), plan)
+    agg_ops.quant_admit(1, *ok)
+    with pytest.raises(TypeError, match="int8 or bf16"):
+        agg_ops.quant_admit(1, x, g, True, fac, e_q.float(), e_s, x_q, ymax,
+                            ymax, plan)
+    with pytest.raises(ValueError, match="no step 4"):
+        agg_ops.quant_admit(4, *ok)
+    with pytest.raises(ValueError, match="no step 1"):
+        agg_ops.quant_admit(1, x, g, True, fac, e_q.bfloat16(), e_s,
+                            x_q.bfloat16(), None, None, plan)
+    with pytest.raises(TypeError, match="x has dtype"):
+        agg_ops.quant_admit(1, x.double(), *ok[1:])
+    with pytest.raises(TypeError, match="gmaps has dtype"):
+        agg_ops.quant_admit(1, x, gmaps.int(), *ok[2:])
+    with pytest.raises(ValueError, match="the plan needs"):
+        narrow = slice(0, plan.width - 8)
+        agg_ops.quant_admit(1, x, g, True, fac, e_q[:, narrow].contiguous(),
+                            e_s, x_q[:, narrow].contiguous(), ymax, ymax,
+                            plan)
+    with pytest.raises(ValueError, match="is on meta"):
+        agg_ops.quant_admit(1, x, g, True, fac, e_q, e_s.to("meta"), x_q,
+                            ymax, ymax, plan)
 
 
 def test_quant_state_loader_checks_layout():
