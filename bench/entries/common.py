@@ -3,7 +3,9 @@ benchmark's own, the layout check between the two, and the numbers the
 comparison with the reference reads (per-leaf norms and their gaps)."""
 from __future__ import annotations
 
+import dataclasses
 import gc
+import typing
 from typing import List, Sequence
 
 import torch
@@ -15,15 +17,29 @@ from bench.reference.config import ModelConfig
 WEIGHTS_STREAM = 5
 
 
+def _dataclass_in(hint):
+    """The dataclass that a field's type hint names (``Optional[X]``
+    included), else None."""
+    for t in (hint,) + typing.get_args(hint):
+        if dataclasses.is_dataclass(t):
+            return t
+    return None
+
+
 def program_config(model: dict):
     """The program's ``ArchConfig`` holding every key of the
-    configuration file's ``model`` object that it has."""
-    from repro_torch.configs.base import ArchConfig, SSMConfig
+    configuration file's ``model`` object that it has; a field whose type
+    is a dataclass (``ssm``, ``moe``, ``rglru``, ...) built from its
+    object."""
+    from repro_torch.configs.base import ArchConfig
+    hints = typing.get_type_hints(ArchConfig)
     kw = {k: v for k, v in model.items()
           if k in ArchConfig.__dataclass_fields__}
     kw["layer_pattern"] = tuple(kw.get("layer_pattern", ("attn",)))
-    if model.get("ssm") is not None:
-        kw["ssm"] = SSMConfig(**model["ssm"])
+    for k, v in kw.items():
+        sub = _dataclass_in(hints[k])
+        if sub is not None and v is not None:
+            kw[k] = sub(**v)
     return ArchConfig(**kw)
 
 

@@ -1,31 +1,18 @@
 """A model configuration as the plain reference reads it: the ``model``
 object of a ``bench/configs/<name>.json`` file, with the derived sizes
 (padded vocabulary, head width, stages, FedFA sections) worked out here
-from the published ones."""
+from the published ones.  The fields are those every block shares; a
+block's own sub-configuration (Mamba-2's ``ssm``) stays in ``extra``,
+where the block reads it."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
-
-
-@dataclass(frozen=True)
-class SSM:
-    d_state: int
-    d_conv: int
-    expand: int
-    head_dim: int
-    chunk: int
-
-    def d_inner(self, d_model: int) -> int:
-        return self.expand * d_model
-
-    def n_heads(self, d_model: int) -> int:
-        return self.d_inner(d_model) // self.head_dim
+from typing import Tuple
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    family: str                     # dense (attention + gated FFN) | ssm
+    family: str                     # a label, and the tests' small sizes' key
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,7 +29,6 @@ class ModelConfig:
     optimizer: str = "sgd"
     momentum: float = 0.9
     weight_decay: float = 1e-4
-    ssm: Optional[SSM] = None
     extra: dict = field(default_factory=dict, compare=False)
 
     @classmethod
@@ -51,10 +37,14 @@ class ModelConfig:
         kw = {k: v for k, v in model.items() if k in known}
         if "layer_pattern" in kw:
             kw["layer_pattern"] = tuple(kw["layer_pattern"])
-        if kw.get("ssm") is not None:
-            kw["ssm"] = SSM(**kw["ssm"])
         return cls(**kw, extra={k: v for k, v in model.items()
                                 if k not in known})
+
+    def block_name(self, kind: str) -> str:
+        """The block module (``bench/reference/blocks/<name>.py``) that
+        runs layer kind ``kind``: ``blocks[kind]`` of the ``model`` object
+        where it names one, else the kind."""
+        return self.extra.get("blocks", {}).get(kind, kind)
 
     @property
     def padded_vocab(self) -> int:

@@ -10,25 +10,32 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from bench.reference import blocks
 from bench.reference.config import ModelConfig
 
 Masks = Dict[str, Optional[torch.Tensor]]
 
 
-def width_sizes(cfg: ModelConfig, w: float) -> Dict[str, int]:
-    """Active sizes of each flexible dimension at width multiplier w."""
+def flex(cfg: ModelConfig, w: float) -> Dict[str, Tuple[int, int]]:
+    """{dimension: (full size, active size at width multiplier w)} of
+    ``d_model`` and each flexible dimension of the configuration's
+    blocks."""
     if not 0.0 < w <= 1.0:
         raise ValueError(f"width multiplier must be in (0, 1], got {w!r}")
-    kv = max(1, int(round(w * cfg.n_kv_heads))) if cfg.n_kv_heads else 0
-    heads = kv * (cfg.n_heads // cfg.n_kv_heads) if cfg.n_kv_heads else 0
     d_model = (max(16, int(w * cfg.d_model) // 8 * 8) if w < 1.0
                else cfg.d_model)
-    d_ff = (max(8, int(w * cfg.d_ff) // 8 * 8) if (cfg.d_ff and w < 1.0)
-            else cfg.d_ff)
-    sh = (max(1, int(round(w * cfg.ssm.n_heads(cfg.d_model))))
-          if cfg.ssm else 0)
-    return {"d_model": d_model, "heads": heads, "kv_heads": kv, "d_ff": d_ff,
-            "ssm_heads": sh}
+    out = {"d_model": (cfg.d_model, d_model)}
+    for mod in blocks.used(cfg):
+        for k, v in mod.flex(cfg, w).items():
+            if out.setdefault(k, v) != v:
+                raise ValueError(f"blocks disagree on dimension {k!r}: "
+                                 f"{out[k]} and {v}")
+    return out
+
+
+def width_sizes(cfg: ModelConfig, w: float) -> Dict[str, int]:
+    """Active sizes of each flexible dimension at width multiplier w."""
+    return {k: active for k, (_, active) in flex(cfg, w).items()}
 
 
 def _prefix(n: int, k: int, device) -> torch.Tensor:
@@ -36,12 +43,10 @@ def _prefix(n: int, k: int, device) -> torch.Tensor:
 
 
 def width_masks(cfg: ModelConfig, w: float, device) -> Masks:
-    s = width_sizes(cfg, w)
-    full = {"d_model": cfg.d_model, "heads": cfg.n_heads,
-            "kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
-            "ssm_heads": cfg.ssm.n_heads(cfg.d_model) if cfg.ssm else 0}
-    return {k: _prefix(n, s[k], device) if n else None
-            for k, n in full.items()}
+    """A prefix mask of each flexible dimension (None where its full size
+    is 0)."""
+    return {k: _prefix(n, a, device) if n else None
+            for k, (n, a) in flex(cfg, w).items()}
 
 
 def depth_gates(cfg: ModelConfig, depths, device) -> torch.Tensor:
@@ -60,31 +65,9 @@ def graft_map(cfg: ModelConfig, depths, device) -> torch.Tensor:
     return torch.from_numpy(m).to(device)
 
 
-def _rep(mask, k):
+def repeat_mask(mask, k):
+    """A mask over units of k channels as a mask over the channels."""
     return None if mask is None else torch.repeat_interleave(mask, k)
-
-
-def _block_axes(kind: str, cfg: ModelConfig, m: Masks) -> dict:
-    dm = m["d_model"]
-    if kind == "ssd":
-        s = cfg.ssm
-        inner = _rep(m["ssm_heads"], s.head_dim)
-        ones = torch.ones(s.d_state, device=dm.device)
-        proj = torch.cat([inner, inner, ones, ones, m["ssm_heads"]])
-        conv = torch.cat([inner, ones, ones])
-        return {("ln", "scale"): (dm,),
-                ("ssd", "in_proj"): (dm, proj), ("ssd", "conv_w"): (None, conv),
-                ("ssd", "conv_b"): (conv,), ("ssd", "A_log"): (m["ssm_heads"],),
-                ("ssd", "D"): (m["ssm_heads"],),
-                ("ssd", "dt_bias"): (m["ssm_heads"],),
-                ("ssd", "norm"): (inner,), ("ssd", "out_proj"): (inner, dm)}
-    h = _rep(m["heads"], cfg.head_dim)
-    kv = _rep(m["kv_heads"], cfg.head_dim)
-    return {("ln1", "scale"): (dm,), ("ln2", "scale"): (dm,),
-            ("attn", "wq"): (dm, h), ("attn", "wk"): (dm, kv),
-            ("attn", "wv"): (dm, kv), ("attn", "wo"): (h, dm),
-            ("ffn", "w_gate"): (dm, m["d_ff"]), ("ffn", "w_up"): (dm, m["d_ff"]),
-            ("ffn", "w_down"): (m["d_ff"], dm)}
 
 
 def axis_masks(cfg: ModelConfig, m: Masks) -> Dict[Tuple, tuple]:
@@ -95,7 +78,7 @@ def axis_masks(cfg: ModelConfig, m: Masks) -> Dict[Tuple, tuple]:
         out[("lm_head",)] = (dm, None)
     for i, (unit, _) in enumerate(cfg.stages()):
         for j, kind in enumerate(unit):
-            for sub, ax in _block_axes(kind, cfg, m).items():
+            for sub, ax in blocks.of(cfg, kind).axes(cfg, m).items():
                 out[("stages", i, j) + sub] = ax
     return out
 

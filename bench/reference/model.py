@@ -1,12 +1,10 @@
 """The plain reference model: the forward pass, next-token loss and
-gradients of the two families the benchmark runs, in float32 PyTorch with
-no kernel, cache or batching beyond the batch itself.
-
-* ``dense``: pre-norm decoder blocks of grouped-query attention with
-  rotary positions (causal softmax over the whole sequence) and a gated
-  SiLU FFN, RMSNorm with ``1 + scale``, a tied or untied head.
-* ``ssm``: Mamba-2 SSD blocks (input projection, causal depthwise conv,
-  the chunked state-space dual form, gated RMSNorm, output projection).
+gradients of a configuration's blocks between an embedding and a tied or
+untied head, in float32 PyTorch with no kernel, cache or batching beyond
+the batch itself.  Each layer kind's block is a module of
+``bench/reference/blocks/``, found by name; the layers the blocks share
+(RMSNorm with ``1 + scale``, rotary positions, causal attention, the
+tiled prefix sum) are here.
 
 FedFA's client sub-models enter as width masks (channels outside the
 client's width are zeroed and norms count active channels only) and depth
@@ -21,6 +19,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from bench.reference import blocks
 from bench.reference.config import ModelConfig
 
 Params = Dict[Tuple, torch.Tensor]
@@ -30,26 +29,6 @@ Params = Dict[Tuple, torch.Tensor]
 # Shapes and weights
 # ---------------------------------------------------------------------------
 
-def _block_shapes(kind: str, cfg: ModelConfig, r: int) -> dict:
-    D = cfg.d_model
-    if kind == "ssd":
-        s = cfg.ssm
-        di, nh, N = s.d_inner(D), s.n_heads(D), s.d_state
-        conv = di + 2 * N
-        return {("ln", "scale"): (r, D),
-                ("ssd", "in_proj"): (r, D, 2 * di + 2 * N + nh),
-                ("ssd", "conv_w"): (r, s.d_conv, conv),
-                ("ssd", "conv_b"): (r, conv), ("ssd", "A_log"): (r, nh),
-                ("ssd", "D"): (r, nh), ("ssd", "dt_bias"): (r, nh),
-                ("ssd", "norm"): (r, di), ("ssd", "out_proj"): (r, di, D)}
-    H, K, hd, Fd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
-    return {("ln1", "scale"): (r, D), ("ln2", "scale"): (r, D),
-            ("attn", "wq"): (r, D, H * hd), ("attn", "wk"): (r, D, K * hd),
-            ("attn", "wv"): (r, D, K * hd), ("attn", "wo"): (r, H * hd, D),
-            ("ffn", "w_gate"): (r, D, Fd), ("ffn", "w_up"): (r, D, Fd),
-            ("ffn", "w_down"): (r, Fd, D)}
-
-
 def param_shapes(cfg: ModelConfig) -> Dict[Tuple, Tuple[int, ...]]:
     """{path: shape} in flatten order."""
     out = {("embed",): (cfg.padded_vocab, cfg.d_model),
@@ -58,24 +37,28 @@ def param_shapes(cfg: ModelConfig) -> Dict[Tuple, Tuple[int, ...]]:
         out[("lm_head",)] = (cfg.d_model, cfg.padded_vocab)
     for i, (unit, reps) in enumerate(cfg.stages()):
         for j, kind in enumerate(unit):
-            for sub, shp in _block_shapes(kind, cfg, reps).items():
+            for sub, shp in blocks.of(cfg, kind).shapes(cfg, reps).items():
                 out[("stages", i, j) + sub] = shp
     return {p: out[p] for p in sorted(out)}
 
 
-def init_rule(path: Tuple, shape) -> Tuple[str, float]:
-    """How a leaf is drawn: ("normal", std) with the fan-in rule
-    (std = scale / sqrt(fan_in), scale 3 for the SSD's conv), or
-    ("fill", value): RMSNorm scales (entering as 1 + scale), the SSD's
-    A_log, dt_bias, conv bias and gated norm 0, its D 1."""
-    name = path[-1]
-    if name in ("scale", "A_log", "dt_bias", "conv_b", "norm"):
-        return "fill", 0.0
-    if name == "D":
-        return "fill", 1.0
+def fan_in_std(shape, scale: float = 1.0) -> float:
+    """scale / sqrt(fan_in): fan_in a matrix's first axis, a stacked
+    leaf's second to last."""
     fan_in = shape[0] if len(shape) == 2 else shape[-2]
-    scale = 3.0 if name == "conv_w" else 1.0
-    return "normal", scale / math.sqrt(max(fan_in, 1))
+    return scale / math.sqrt(max(fan_in, 1))
+
+
+def init_rule(cfg: ModelConfig, path: Tuple, shape) -> Tuple[str, float]:
+    """How a leaf is drawn: ("normal", std) or ("fill", value).  A block's
+    leaf by its block's rule; the final RMSNorm scale 0 (entering as
+    1 + scale); the embedding and the head fan-in normal."""
+    if path[0] == "stages":
+        kind = cfg.stages()[path[1]][0][path[2]]
+        return blocks.of(cfg, kind).init_rule(path[3:], shape)
+    if path[-1] == "scale":
+        return "fill", 0.0
+    return "normal", fan_in_std(shape)
 
 
 def leaf_layout(cfg: ModelConfig):
@@ -102,8 +85,8 @@ def init_flat(cfg: ModelConfig, seed: int, device) -> torch.Tensor:
     gen = torch.Generator(device=device).manual_seed(seed)
     buf = torch.randn(n, generator=gen, device=device, dtype=torch.float32)
     for path, shape, off, size, *_ in layout:
-        kind, v = init_rule(path, shape)
-        if kind == "fill":
+        rule, v = init_rule(cfg, path, shape)
+        if rule == "fill":
             buf[off:off + size].fill_(v)
         else:
             buf[off:off + size].mul_(v)
@@ -170,27 +153,6 @@ def attention(q, k, v, head_mask):
     return out
 
 
-def _attn_block(p, x, cfg: ModelConfig, m):
-    B, S, _ = x.shape
-    hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    dm = m["d_model"]
-    h = rms_norm(x, p[("ln1", "scale")], dm, cfg.norm_eps)
-    q = rope((h @ p[("attn", "wq")]).reshape(B, S, H, hd), cfg.rope_theta)
-    k = rope((h @ p[("attn", "wk")]).reshape(B, S, K, hd), cfg.rope_theta)
-    v = (h @ p[("attn", "wv")]).reshape(B, S, K, hd)
-    return attention(q, k, v, m["heads"]).reshape(B, S, H * hd) \
-        @ p[("attn", "wo")]
-
-
-def _ffn(p, h, m):
-    g = F.silu(h @ p[("ffn", "w_gate")]) * (h @ p[("ffn", "w_up")])
-    if m["d_ff"] is not None:
-        g = g * m["d_ff"]
-    return g @ p[("ffn", "w_down")]
-
-
-# -- Mamba-2 SSD ------------------------------------------------------------
-
 def _cumsum16(x, dim):
     """Inclusive prefix sum along ``dim`` in tiles of 16: a sequential sum
     within each tile plus the prefix of the tiles' totals."""
@@ -209,107 +171,28 @@ def _cumsum16(x, dim):
     return inner.reshape(*a.shape[:-1], -1)[..., :n].movedim(-1, dim)
 
 
-def _ssd_intra(x, dt, A, B, C):
-    """One chunk's diagonal block and end state: x (G, Q, nh, hp), dt
-    (G, Q, nh), B, C (G, Q, N)."""
-    Q = x.shape[1]
-    L = _cumsum16(dt * A[None, None, :], 1)
-    CB = torch.einsum("gtn,gsn->gts", C, B)
-    diff = L[:, :, None, :] - L[:, None, :, :]
-    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                   device=x.device))[None, :, :, None]
-    zero = torch.zeros((), device=x.device)
-    M = torch.where(causal, CB[..., None] * torch.exp(
-        torch.where(causal, diff, zero)), zero) * dt[:, None, :, :]
-    y = torch.einsum("gtsh,gshp->gthp", M, x)
-    dB = B[:, :, None, :] * (dt * torch.exp(L[:, -1:, :] - L))[..., None]
-    return y, torch.einsum("gshn,gshp->ghpn", dB, x), L
-
-
-def ssd_chunked(x, dt, A, B, C, chunk: int):
-    """The SSD over the sequence: chunks of ``chunk`` positions (zero
-    padded, dt = 0 there), the state carried across chunks in order."""
-    b, S, nh, hp = x.shape
-    N, Q = B.shape[-1], chunk
-    pad = (-S) % Q
-    if pad:
-        x, dt = F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad))
-        B, C = F.pad(B, (0, 0, 0, pad)), F.pad(C, (0, 0, 0, pad))
-    nc = (S + pad) // Q
-    y_in, state, L = _ssd_intra(x.reshape(b * nc, Q, nh, hp),
-                                dt.reshape(b * nc, Q, nh), A,
-                                B.reshape(b * nc, Q, N),
-                                C.reshape(b * nc, Q, N))
-    y_in = y_in.reshape(b, nc, Q, nh, hp)
-    state = state.reshape(b, nc, nh, hp, N)
-    L = L.reshape(b, nc, Q, nh)
-    Cc = C.reshape(b, nc, Q, N)
-    decay = torch.exp(L[:, :, -1, :])
-    h = torch.zeros((b, nh, hp, N), device=x.device)
-    y_out = []
-    for c in range(nc):
-        y_out.append(torch.einsum("btn,bhpn,bth->bthp", Cc[:, c], h,
-                                  torch.exp(L[:, c])))
-        h = decay[:, c, :, None, None] * h + state[:, c]
-    y = (y_in + torch.stack(y_out, 1)).reshape(b, nc * Q, nh, hp)
-    return y[:, :S]
-
-
-def _ssd_block(p, x, cfg: ModelConfig, m):
-    s = cfg.ssm
-    D = cfg.d_model
-    di, nh, hp, N = s.d_inner(D), s.n_heads(D), s.head_dim, s.d_state
-    hm, dm = m["ssm_heads"], m["d_model"]
-    u = rms_norm(x, p[("ln", "scale")], dm, cfg.norm_eps)
-    z, xBC, dt_raw = torch.split(u @ p[("ssd", "in_proj")],
-                                 [di, di + 2 * N, nh], dim=-1)
-    w, S = p[("ssd", "conv_w")], xBC.shape[1]
-    xp = torch.cat([xBC.new_zeros(xBC.shape[:1] + (s.d_conv - 1,)
-                                  + xBC.shape[2:]), xBC], dim=1)
-    conv = xp[:, 0:S] * w[0][None, None]
-    for i in range(1, s.d_conv):
-        conv = conv + xp[:, i:i + S] * w[i][None, None]
-    xBC = F.silu(conv + p[("ssd", "conv_b")][None, None])
-    xs, B, C = torch.split(xBC, [di, N, N], dim=-1)
-    dt = torch.logaddexp(dt_raw + p[("ssd", "dt_bias")],
-                         torch.zeros((), device=x.device))
-    A = -torch.exp(p[("ssd", "A_log")])
-    xh = xs.reshape(*xs.shape[:2], nh, hp)
-    if hm is not None:
-        xh = xh * hm[None, None, :, None]
-        dt = dt * hm[None, None, :]
-    y = ssd_chunked(xh, dt, A, B, C, s.chunk)
-    y = (y + p[("ssd", "D")][None, None, :, None] * xh).reshape(
-        *y.shape[:2], di)
-    inner = None if hm is None else torch.repeat_interleave(hm, hp)
-    y = rms_norm(y * F.silu(z), p[("ssd", "norm")], inner, cfg.norm_eps)
-    out = y @ p[("ssd", "out_proj")]
-    return out * dm if dm is not None else out
-
-
 # ---------------------------------------------------------------------------
 # Forward, loss, gradients
 # ---------------------------------------------------------------------------
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, m,
-            gates: torch.Tensor) -> torch.Tensor:
-    """Logits (B, S, padded vocab) of a client sub-model: masks ``m``
-    (``masks.width_masks``), gates (R,) over the first stage's repeats."""
+            gates: torch.Tensor):
+    """(logits (B, S, padded vocab), the blocks' auxiliary loss) of a
+    client sub-model: masks ``m`` (``masks.width_masks``), gates (R,) over
+    the first stage's repeats."""
     dm = m["d_model"]
     x = params[("embed",)][tokens] * dm
+    aux = 0.0
     for i, (unit, reps) in enumerate(cfg.stages()):
         g = gates if i == 0 else torch.ones(reps, device=x.device)
+        mods = [blocks.of(cfg, kind) for kind in unit]
         for r in range(reps):
-            for j, kind in enumerate(unit):
+            for j, mod in enumerate(mods):
                 pre = ("stages", i, j)
                 p = {path[3:]: w[r] for path, w in params.items()
                      if path[:3] == pre}
-                if kind == "ssd":
-                    x = x + g[r] * _ssd_block(p, x, cfg, m)
-                else:
-                    x = x + g[r] * _attn_block(p, x, cfg, m)
-                    h = rms_norm(x, p[("ln2", "scale")], dm, cfg.norm_eps)
-                    x = x + g[r] * _ffn(p, h, m)
+                x, a = mod.forward(p, x, cfg, m, g[r])
+                aux = aux + a
     x = rms_norm(x, params[("final_norm", "scale")], dm, cfg.norm_eps)
     w = (params[("embed",)].t() if cfg.tie_embeddings
          else params[("lm_head",)])
@@ -318,7 +201,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, m,
         pad = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = torch.where(pad, logits, torch.full((), -1e30,
                                                      device=x.device))
-    return logits
+    return logits, aux
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -327,8 +210,10 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def loss_and_grad(params: Params, cfg: ModelConfig, tokens, m, gates):
-    """(loss, {path: gradient}) of the next-token loss."""
+    """(loss, {path: gradient}) of the next-token loss plus the blocks'
+    auxiliary loss."""
     leaves = {p: w.detach().requires_grad_(True) for p, w in params.items()}
-    loss = lm_loss(forward(leaves, cfg, tokens, m, gates), tokens)
+    logits, aux = forward(leaves, cfg, tokens, m, gates)
+    loss = lm_loss(logits, tokens) + aux
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))

@@ -13,7 +13,9 @@ for p in (str(ROOT / "src"), str(ROOT)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-SMALL = json.loads((Path(__file__).parent / "small.json").read_text())
+HERE = Path(__file__).parent
+# the entries' small sizes; each family's model sizes in small/<family>.json
+SMALL = json.loads((HERE / "small.json").read_text())
 
 
 def pytest_configure(config):
@@ -31,11 +33,14 @@ def card():
 
 def small_cell(cell: str):
     """(config, traffic) of ``cell`` at the tests' small size: the widths
-    and depths of ``small.json``, the traffic's other parameters kept."""
+    and depths of ``small/<family>.json``, the cohort and batch of
+    ``small.json``, the traffic's other parameters kept."""
     from bench import harness
     c = harness.load("workloads", cell)
     config = copy.deepcopy(harness.load("configs", c["config"]))
-    config["model"].update(SMALL["model"][config["model"]["family"]])
+    family = config["model"]["family"]
+    config["model"].update(json.loads(
+        (HERE / "small" / f"{family}.json").read_text()))
     traffic = copy.deepcopy(harness.load("traffic", c["traffic"]))
     traffic["population"]["clients"] = SMALL["clients"]
     traffic.update(SMALL[traffic["entry"]])

@@ -41,12 +41,14 @@ def _mamba2_by_hand(w, frac):
 
 
 @pytest.mark.parametrize("w,frac", POOL)
-def test_client_flops_match_hand_count(w, frac):
-    for cfg, hand in ((SMOLLM, _smollm_by_hand), (MAMBA2, _mamba2_by_hand)):
-        depths = tuple(max(1, math.ceil(frac * d))
-                       for d in cfg.max_section_depths())
-        assert ys.client_step_flops(cfg, w, depths, B, S) == \
-            pytest.approx(hand(w, frac), rel=1e-12)
+@pytest.mark.parametrize("cfg,hand", [(SMOLLM, _smollm_by_hand),
+                                      (MAMBA2, _mamba2_by_hand)],
+                         ids=["smollm-135m", "mamba2-130m"])
+def test_client_flops_match_hand_count(cfg, hand, w, frac):
+    depths = tuple(max(1, math.ceil(frac * d))
+                   for d in cfg.max_section_depths())
+    assert ys.client_step_flops(cfg, w, depths, B, S) == \
+        pytest.approx(hand(w, frac), rel=1e-12)
 
 
 def test_smallest_smollm_client_in_numbers():
@@ -64,26 +66,23 @@ def test_population_depths_are_the_pools():
         for _, f in POOL}
 
 
-@pytest.mark.parametrize("kernel,shape,dtype,want", [
-    ("hist_level", (16, 1000, 24), "f32", 16 * 1000 * 4 + 16 * 2 * 256 * 12),
-    ("hist_level", (16, 1000, 16), "f32", 16 * 2 * 256 * 12),
-    ("hist_level", (16, 1000, 24), "int8", 16 * 1000 + 16 * 2 * 256 * 12),
-    ("quantile_fused", (10, 100), "f32", 4000 + 10 * 4 * 3),
-    ("quantile_fused", (10, 100), "int8", 1000 + 10 * 4 * 4),
-    ("scaled_accum", (16, 1000), "f32", 64_000 + 4_000 + 64),
-    ("quant_accum", (16, 1000), "int8", 16_000 + 4_000),
+@pytest.mark.parametrize("kernel,shape,dtype,work,want", [
+    ("hist_level", (16, 1000, 24), "f32", "bytes",
+     16 * 1000 * 4 + 16 * 2 * 256 * 12),
+    ("hist_level", (16, 1000, 16), "f32", "bytes", 16 * 2 * 256 * 12),
+    ("hist_level", (16, 1000, 24), "int8", "bytes",
+     16 * 1000 + 16 * 2 * 256 * 12),
+    ("quantile_fused", (10, 100), "f32", "bytes", 4000 + 10 * 4 * 3),
+    ("quantile_fused", (10, 100), "int8", "bytes", 1000 + 10 * 4 * 4),
+    ("scaled_accum", (16, 1000), "f32", "bytes", 64_000 + 4_000 + 64),
+    ("quant_accum", (16, 1000), "int8", "bytes", 16_000 + 4_000),
+    ("scaled_accum", (16, 1000), "f32", "flops", 32_000),
+    ("quant_accum", (16, 1000), "int8", "flops", 32_000),
+    ("hist_level", (16, 1000, 24), "f32", "flops", 0),
 ])
-def test_kernel_bytes_match_hand_count(kernel, shape, dtype, want):
-    assert ys.kernel_spec(kernel).required(shape, dtype)[0] == want
-
-
-@pytest.mark.parametrize("kernel,shape,dtype,want", [
-    ("scaled_accum", (16, 1000), "f32", 32_000),
-    ("quant_accum", (16, 1000), "int8", 32_000),
-    ("hist_level", (16, 1000, 24), "f32", 0),
-])
-def test_kernel_flops_match_hand_count(kernel, shape, dtype, want):
-    assert ys.kernel_spec(kernel).required(shape, dtype)[1] == want
+def test_kernel_work_matches_hand_count(kernel, shape, dtype, work, want):
+    nbytes, flops = ys.kernel_spec(kernel).required(shape, dtype)
+    assert {"bytes": nbytes, "flops": flops}[work] == want
 
 
 def test_every_kernel_yardstick_names_its_device_functions():

@@ -7,13 +7,14 @@ does less reads as a higher share of the peak, never as one above
 100 %."""
 from __future__ import annotations
 
-import dataclasses
 import importlib.util
 import json
 import statistics
 from pathlib import Path
 from typing import Iterable, Sequence, Tuple
 
+from bench.reference import blocks
+from bench.reference import masks as mk
 from bench.reference.config import ModelConfig
 
 BENCH = Path(__file__).resolve().parent
@@ -36,51 +37,23 @@ def least_ms(nbytes: float, flops: float, flops_per_s: float) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Sub-model FLOPs (a copy of the port's analytic model, launch/costs.py)
+# Sub-model FLOPs (the port's analytic model, launch/costs.py, per block)
 # ---------------------------------------------------------------------------
-
-def _attn_block_flops(cfg: ModelConfig, B, S) -> float:
-    D, hd, H, K = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    proj = 2 * B * S * D * (H + 2 * K) * hd + 2 * B * S * H * hd * D
-    attn = 2 * 2 * B * S * (S / 2) * H * hd
-    ffn = 2 * 3 * B * S * D * cfg.d_ff
-    return proj + attn + ffn
-
-
-def _ssd_block_flops(cfg: ModelConfig, B, S) -> float:
-    s, D = cfg.ssm, cfg.d_model
-    di = s.d_inner(D)
-    nh, hp, N, Q = s.n_heads(D), s.head_dim, s.d_state, s.chunk
-    proj = 2 * B * S * D * (2 * di + 2 * N + nh)
-    conv = 2 * B * S * (di + 2 * N) * s.d_conv
-    nc = max(S // Q, 1)
-    intra = B * nc * nh * (2 * Q * Q * N + 2 * Q * Q * hp + 2 * Q * N * hp)
-    inter = B * nc * nh * 2 * Q * N * hp
-    return proj + conv + intra + inter + 2 * B * S * di * D
-
-
-def train_step_flops(cfg: ModelConfig, B: int, S: int) -> float:
-    """Forward and backward (3x the forward) of one batch of B x S."""
-    f = 0.0
-    for unit, reps in cfg.stages():
-        for kind in unit:
-            f += reps * (_ssd_block_flops(cfg, B, S) if kind == "ssd"
-                         else _attn_block_flops(cfg, B, S))
-    f += 2 * B * S * cfg.d_model * cfg.padded_vocab
-    return 3.0 * f
-
 
 def client_step_flops(cfg: ModelConfig, width: float, depths,
                       B: int, S: int) -> float:
-    """One local step of a client's sub-model: its widths (``masks``'s
-    active sizes) and its depth, sum(depths) blocks."""
-    from bench.reference.masks import width_sizes
-    w = width_sizes(cfg, width)
-    sub = dataclasses.replace(
-        cfg, d_model=w["d_model"], n_heads=max(w["heads"], 1),
-        n_kv_heads=max(w["kv_heads"], 1), d_ff=max(w["d_ff"], 1),
-        n_layers=max(int(sum(depths) * len(cfg.layer_pattern)), 1))
-    return train_step_flops(sub, B, S)
+    """Forward and backward (3x the forward) of one local step of a
+    client's sub-model on a batch of B x S: each block at the client's
+    active sizes (``masks.width_sizes``), sum(depths) repeats of the first
+    stage and every repeat of a later one, and the head."""
+    sizes = mk.width_sizes(cfg, width)
+    f = 0.0
+    for i, (unit, reps) in enumerate(cfg.stages()):
+        for kind in unit:
+            f += ((reps if i else sum(depths))
+                  * blocks.of(cfg, kind).flops(cfg, sizes, B, S))
+    f += 2 * B * S * sizes["d_model"] * cfg.padded_vocab
+    return 3.0 * f
 
 
 # ---------------------------------------------------------------------------
